@@ -1,0 +1,437 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Run from the repository root on a machine with a card and ``nvcc``. It
+imports only ``torch``, ``numpy`` and ``src/repro_torch`` (never JAX or the
+JAX package), and it:
+
+1. prints the card's name and power limit (``nvidia-smi``);
+2. builds the hand-written CUDA kernels from ``src/repro_torch/csrc``;
+3. holds each kernel against its plain PyTorch version on the card, at the
+   shapes the serving path gives it plus edge cases (inactive sentinel rows,
+   a ring ``page_pos``, a sliding window, ragged and offset prompts), and
+   times the kernel, the plain version and, where one exists, the single
+   PyTorch call that computes the same function;
+4. serves 16 requests (a shared 128-token system prompt plus a 64-token tail
+   each, 32 new tokens) through full-width ``llama3_2-1b`` (16 layers,
+   d_model 2048, vocab 128256; random weights from seed 0) with 8 slots and
+   512 pages of 64 tokens (the cell of ``repro_torch.launch.profile_serve``),
+   counting every kernel launch; then compares the logits of one of the
+   engine's own batched decode steps, captured mid-run, and of one prefill
+   and one decode step with the ``impl="ref"`` oracles;
+5. prints a JSON line with each kernel's launches, error and times, and, as
+   the last line, ``{"ok": true, "device": {...}}``.
+
+Any failure exits nonzero before the last line is printed.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+# one H100 SXM at its full 700 W (NVIDIA's data sheet): device memory rate
+# and dense bf16 tensor-core rate, for the bound of each kernel
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+TOL = {"paged_attention": 3e-2, "flash_attention": 2e-2}  # bf16, tests/test_kernels.py
+LOGITS_TOL = 3e-2  # max |kernel - ref| logits over max |ref logits|, bf16 over 16 layers
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+SPIN_CYCLES = 10_000_000  # about 5 ms at the H100's 1.98 GHz clock
+MAX_SPIN_CYCLES = 32 * SPIN_CYCLES
+
+
+def time_ms(fn, iters: int = 50, flush: torch.Tensor = None) -> float:
+    """Mean device time of one call, from CUDA events around it. Each call
+    is timed alone behind a device-side spin, which keeps the card busy
+    while the host issues the events and the call, so host dispatch stays
+    out of the reading. A sample counts only if the host had issued the
+    whole call before the spin ended on the card (host issue time under the
+    spin's device time); a sample that a host stall outlasted is dropped and
+    taken again behind a spin twice as long. With ``flush``, the L2 cache is
+    overwritten first."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    spun, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    cycles, samples, dropped = SPIN_CYCLES, [], 0
+    while len(samples) < iters:
+        if flush is not None:
+            flush.zero_()
+        t0 = time.perf_counter()
+        spun.record()  # reached on the card no earlier than t0
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn()
+        end.record()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if issue_ms < spun.elapsed_time(start):
+            samples.append(start.elapsed_time(end))
+            continue
+        dropped += 1
+        check(dropped <= iters, f"{dropped} samples outlasted by host issue ({issue_ms:.2f} ms), "
+              f"spin now {cycles} cycles")
+        cycles = min(2 * cycles, MAX_SPIN_CYCLES)
+    if dropped:
+        print(f"  (timer: {dropped} samples dropped for a host stall, spin raised to {cycles} cycles)",
+              flush=True)
+    return sum(samples) / iters
+
+
+# ------------------------------ paged decode ------------------------------
+def paged_case(gen, *, B=8, H=32, K=8, D=64, T=64, R=32, P=512, lengths, window=None, ring=None):
+    """Inputs shaped as the engine gives them: each row's pages are distinct
+    random pool pages, the rest of its table is the sentinel P; a length-0
+    row is inactive (all sentinel). With ``ring`` pages, page_pos is the
+    sliding-window ring layout (page r holds the newest block j = r mod R)."""
+    dev = gen.device
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    pool_k = torch.randn((P, T, K, D), generator=gen, device=dev).to(torch.bfloat16)
+    pool_v = torch.randn((P, T, K, D), generator=gen, device=dev).to(torch.bfloat16)
+    perm = torch.randperm(P, generator=gen, device=dev).cpu().numpy()
+    tables = np.full((B, R), P, np.int32)
+    page_pos = np.zeros((B, R), np.int32)
+    used = 0
+    for b, n in enumerate(lengths):
+        if n == 0:
+            continue
+        n_pages = min(R, n // T + 1) if ring is None else ring
+        tables[b, :n_pages] = perm[used:used + n_pages]
+        used += n_pages
+        if ring is None:
+            page_pos[b] = np.arange(R) * T
+        else:
+            last = (n - 1) // T
+            for r in range(ring):
+                j = last - ((last - r) % ring)
+                page_pos[b, r] = j * T
+    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return (q, pool_k, pool_v, to(tables), to(page_pos),
+            torch.tensor(lengths, dtype=torch.int32, device=dev)), window
+
+
+def paged_work(args, window):
+    """Bytes and flops the function needs for these inputs: the K and V rows
+    of each valid token read once for every kv-head (the (P, T, K, D) layout
+    lets a reader fetch only those rows), q and the tables read once, o/m/l
+    written once; 4 flops per (query head, valid token, dim)."""
+    q, pool_k, _, tables, page_pos, lengths = args
+    B, H, D = q.shape
+    P, T, K, _ = pool_k.shape
+    tables, page_pos, lengths = (t.cpu().numpy() for t in (tables, page_pos, lengths))
+    tokens = 0
+    for b in range(B):
+        lo = max(0, lengths[b] - window) if window else 0
+        for pid, base in zip(tables[b], page_pos[b]):
+            if 0 <= pid < P:
+                tokens += max(0, min(base + T, lengths[b]) - max(base, lo))
+    nbytes = (q.numel() * q.element_size() + 2 * tokens * K * D * pool_k.element_size()
+              + (tables.size + page_pos.size + lengths.size) * 4 + B * H * (D + 2) * 4)
+    flops = 4 * tokens * H * D
+    return nbytes, flops
+
+
+def check_paged(args, window, name):
+    from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
+
+    o, m, l = paged_attention_cuda(*args, window=window)
+    po, pm, pl = paged_attention_plain(*args, window=window)
+    torch.cuda.synchronize()
+    for t in (o, m, l):
+        check(bool(torch.isfinite(t).all()), f"paged {name}: non-finite output")
+    lengths = args[5]
+    dead = lengths == 0
+    if dead.any():
+        check(bool((o[dead] == 0).all() and (l[dead] == 0).all() and (m[dead] == -1e30).all()),
+              f"paged {name}: an inactive row is not o=0, l=0, m=-1e30")
+    live = ~dead
+    err = (o[live] / l[live][..., None] - po[live] / pl[live][..., None]).abs().max().item()
+    stat_err = max((m[live] - pm[live]).abs().max().item(),
+                   ((l[live] - pl[live]).abs() / pl[live]).max().item())
+    print(f"  paged_attention {name}: max abs err {err:.3e} (tol {TOL['paged_attention']}), "
+          f"m/l err {stat_err:.3e}", flush=True)
+    check(err <= TOL["paged_attention"] and stat_err <= 1e-3, f"paged {name} disagrees with plain")
+    return err
+
+
+# ------------------------------ flash prefill ------------------------------
+def flash_case(gen, *, B=1, Sq=192, Sk=192, H=32, K=8, D=64, causal=True, window=None, q_start=0):
+    dev = gen.device
+    q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, Sk, K, D), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, Sk, K, D), generator=gen, device=dev).to(torch.bfloat16)
+    return (q, k, v), dict(causal=causal, window=window, q_start=q_start)
+
+
+def flash_work(args, kw):
+    q, k, _ = args
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    qpos = kw["q_start"] + torch.arange(Sq)[:, None]
+    kpos = torch.arange(Sk)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool)
+    if kw["causal"]:
+        mask &= kpos <= qpos
+    if kw["window"]:
+        mask &= kpos > qpos - kw["window"]
+    nbytes = sum(t.numel() * t.element_size() for t in args) + q.numel() * q.element_size()
+    return nbytes, 4 * B * H * D * int(mask.sum())
+
+
+def check_flash(args, kw, name):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    got = flash_attention_cuda(*args, **kw)
+    want = flash_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"flash {name}: non-finite output")
+    err = (got.float() - want.float()).abs().max().item()
+    print(f"  flash_attention {name}: max abs err {err:.3e} (tol {TOL['flash_attention']})", flush=True)
+    check(err <= TOL["flash_attention"], f"flash {name} disagrees with plain")
+    return err
+
+
+def bound_ms(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ------------------------------ engine ------------------------------
+CAPTURE_STEP = 40  # a decode step of the second wave of 8 requests
+
+
+def capture_decode(engine, step: int) -> dict:
+    """Wrap ``engine._decode`` so that its ``step``-th call also keeps its
+    inputs and logits. The pages the step reads are gathered into a compact
+    pool (tables renumbered, the sentinel still out of range) so that the
+    copy is tens of MB, not the whole pool; the call itself runs unchanged."""
+    captured, calls, decode = {}, [0], engine._decode
+
+    def run(tables, page_pos, lengths, tokens):
+        calls[0] += 1
+        if calls[0] != step:
+            return decode(tables, page_pos, lengths, tokens)
+        used = np.unique(tables[tables < engine.n_pool_pages])
+        remap = np.full(engine.n_pool_pages + 1, len(used), np.int32)
+        remap[used] = np.arange(len(used), dtype=np.int32)
+        idx = torch.from_numpy(used).long().to(engine.device)
+        pools = {n: getattr(engine, n).index_select(1, idx) for n in ("pool_k", "pool_v")}
+        logits = decode(tables, page_pos, lengths, tokens)
+        L, dev = engine.pool_k.shape[0], engine.device
+        t, pp = (torch.from_numpy(a).to(dev).expand(L, *a.shape) for a in (remap[tables], page_pos))
+        captured.update(
+            cache={"kv": dict(pools, tables=t, page_pos=pp), "lengths": torch.from_numpy(lengths).to(dev)},
+            tokens=torch.from_numpy(tokens).to(dev), logits=logits.clone(),
+            live=torch.from_numpy(lengths > 0).to(dev))
+        return logits
+
+    engine._decode = run
+    return captured
+
+
+# ------------------------------ main ------------------------------
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import _build
+        from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+        from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
+        from repro_torch.launch.profile_serve import PAGES, SLOTS, cell_requests, warm_up
+        from repro_torch.models.lm import build_model
+        from repro_torch.serving.engine import ServingEngine
+    except ImportError as e:
+        fail(f"cannot import the port from {ROOT / 'src'}: {e}")
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32 (the unembedding)
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. the card
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}",
+          flush=True)
+
+    # 2. build
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    print(f"build: {built or 'up to date'} in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # 3. kernels vs plain on the card
+    print("kernels vs plain:", flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    main_lengths = [193, 200, 0, 210, 224, 196, 0, 208]  # the engine mid-decode, 2 slots idle
+    paged_main = paged_case(gen, lengths=main_lengths)
+    errs = {"paged_attention": check_paged(*paged_main, "main path shape (B=8, R=32, P=512)")}
+    errs["paged_attention"] = max(errs["paged_attention"], check_paged(
+        *paged_case(gen, lengths=[300, 0, 129, 64, 1, 512, 77, 191], window=128, ring=3),
+        "ring page_pos + window 128"))
+    flash_main = flash_case(gen)
+    errs["flash_attention"] = check_flash(*flash_main, "main path shape (Sq=Sk=192)")
+    for kw, name in ((dict(window=64), "window 64"), (dict(Sq=203, Sk=203), "ragged Sq=Sk=203"),
+                     (dict(Sq=64, Sk=192, q_start=128), "q_start 128"),
+                     (dict(B=2, Sq=100, Sk=150, causal=False), "non-causal cross Sq != Sk")):
+        errs["flash_attention"] = max(errs["flash_attention"], check_flash(*flash_case(gen, **kw), name))
+
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB > 50 MB L2
+    p_args, p_win = paged_main
+    f_args, f_kw = flash_main
+    times = {
+        "paged_attention": dict(
+            ms=time_ms(lambda: paged_attention_cuda(*p_args, window=p_win), flush=flush),
+            plain_ms=time_ms(lambda: paged_attention_plain(*p_args, window=p_win), flush=flush),
+            library_ms=None,
+        ),
+        "flash_attention": dict(
+            ms=time_ms(lambda: flash_attention_cuda(*f_args, **f_kw)),
+            plain_ms=time_ms(lambda: flash_attention_plain(*f_args, **f_kw)),
+        ),
+    }
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in f_args)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times["flash_attention"]["library_ms"] = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    # yardstick only: SDPA over the same valid tokens laid out densely
+    # (gathered beforehand, so not the same inputs as the paged kernel's)
+    q, pool_k, pool_v, tables, _, lengths = p_args
+    S = int(lengths.max())
+    idx = tables.clamp(max=pool_k.shape[0] - 1).long()
+    dk = pool_k[idx].flatten(1, 2)[:, :S].transpose(1, 2).contiguous()  # (B, K, S, D)
+    dv = pool_v[idx].flatten(1, 2)[:, :S].transpose(1, 2).contiguous()
+    dmask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    dq = q[:, :, None, :]
+    dense_sdpa_ms = time_ms(lambda: sdpa(dq, dk, dv, attn_mask=dmask, enable_gqa=True), flush=flush)
+    work = {"paged_attention": paged_work(p_args, p_win), "flash_attention": flash_work(f_args, f_kw)}
+    for name, (nbytes, flops) in work.items():
+        b_ms, b_by = bound_ms(nbytes, flops)
+        times[name].update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+        print(f"  {name}: kernel {times[name]['ms']:.4f} ms, plain {times[name]['plain_ms']:.4f} ms, "
+              f"library {times[name]['library_ms']} ms, bound {b_ms:.5f} ms ({b_by}: "
+              f"{nbytes} bytes, {flops} flops)", flush=True)
+    print(f"  paged_attention yardstick: SDPA over the dense gathered cache {dense_sdpa_ms:.4f} ms",
+          flush=True)
+    del flush, dk, dv
+
+    # 4. the engine at full width
+    cfg = get_config("llama3_2-1b")
+    check((cfg.n_layers, cfg.d_model, cfg.vocab_size) == (16, 2048, 128256), f"unexpected config {cfg}")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    engine = ServingEngine(cfg, params, max_slots=SLOTS, n_pages=PAGES, device="cuda")
+    del params  # the engine holds its own serving copy
+    torch.cuda.synchronize()
+    print(f"engine: llama3_2-1b {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"pool {tuple(engine.pool_k.shape)} x2 {engine.pool_k.dtype}, built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    warm_up(engine)
+
+    requests = cell_requests(cfg)
+    captured = capture_decode(engine, CAPTURE_STEP)
+    stats0 = dict(engine.alloc.stats)
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_cuda.launches = 0
+    paged_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    for r in requests:
+        engine.submit(r)
+    done = engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention_cuda.launches,
+                "paged_attention": paged_attention_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+    done = {k: v for k, v in done.items() if k >= 0}
+    check(sorted(done) == list(range(16)), f"completed {sorted(done)}, expected 16 requests")
+    for c in done.values():
+        check(len(c.tokens) == 32 and all(0 <= t < cfg.vocab_size for t in c.tokens),
+              f"request {c.request_id}: bad tokens {c.tokens}")
+    check(all(n > 0 for n in launches.values()), f"a kernel never ran on the main path: {launches}")
+    stats = {k: engine.alloc.stats[k] - stats0[k] for k in stats0}
+    shared = sum(c.prefill_skipped_tokens for c in done.values())
+    check(shared > 0 and stats["cow_copies"] > 0, f"no prefix sharing / COW forks: {stats}")
+    n_tokens = sum(len(c.tokens) for c in done.values())
+    ttft = sorted(c.ttft_s for c in done.values())
+    print(f"engine run: {len(done)} requests, {n_tokens} tokens in {wall:.3f} s = "
+          f"{n_tokens / wall:.1f} tok/s; TTFT p50 {statistics.median(ttft) * 1e3:.1f} ms, "
+          f"max {ttft[-1] * 1e3:.1f} ms (all 16 submitted at once, 8 slots); "
+          f"prefix-shared prompt tokens {shared}; allocator {stats}; launches {launches}; "
+          f"peak memory {peak / 2**30:.2f} GiB", flush=True)
+
+    # the engine's own batched decode step, captured mid-run, against the
+    # impl="ref" oracles on the same pages, tables, lengths and tokens
+    check(bool(captured), f"decode step {CAPTURE_STEP} was never reached")
+    cache, tokens, live = captured["cache"], captured["tokens"], captured["live"]
+    want, _ = model.decode_step(engine.params, cache, tokens, impl="ref")
+    got, want = captured["logits"][live], want[live]  # an idle slot's logits are never read
+    rel_e = (got - want).abs().max().item() / want.abs().max().item()
+    print(f"engine decode step {CAPTURE_STEP} ({int(live.sum())} live rows) vs ref: "
+          f"max abs err / max |ref| = {rel_e:.3e} (tol {LOGITS_TOL})", flush=True)
+    check(bool(torch.isfinite(got).all()) and rel_e <= LOGITS_TOL, "engine decode disagrees with ref")
+    del captured, cache
+
+    # the same model through the impl="ref" oracles: one prefill, one decode
+    toks = torch.tensor([requests[0].prompt], dtype=torch.long, device=dev)
+    lk, ck = model.prefill(engine.params, toks)
+    lr, cr = model.prefill(engine.params, toks, impl="ref")
+    rel = (lk - lr).abs().max().item() / lr.abs().max().item()
+    print(f"prefill logits vs ref: max abs err / max |ref| = {rel:.3e} (tol {LOGITS_TOL})", flush=True)
+    check(bool(torch.isfinite(lk).all()) and rel <= LOGITS_TOL, "prefill logits disagree with ref")
+    nxt = lk.argmax(-1)
+    clone = lambda c: {"kv": {k: v.clone() for k, v in c["kv"].items()}, "lengths": c["lengths"].clone()}  # noqa: E731
+    dk_logits, _ = model.decode_step(engine.params, clone(ck), nxt)
+    dr_logits, _ = model.decode_step(engine.params, clone(ck), nxt, impl="ref")
+    rel_d = (dk_logits - dr_logits).abs().max().item() / dr_logits.abs().max().item()
+    print(f"decode logits vs ref: max abs err / max |ref| = {rel_d:.3e} (tol {LOGITS_TOL})", flush=True)
+    check(bool(torch.isfinite(dk_logits).all()) and rel_d <= LOGITS_TOL, "decode logits disagree with ref")
+
+    # 5. results
+    sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                                   "src/repro/kernels/paged_attention.py:79"),
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:86")}
+    kernels = []
+    for name in ("flash_attention", "paged_attention"):
+        t = times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
+            "launches": launches[name], "max_abs_err": errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,61 @@
+"""The one way weights cross from the JAX package to the port.
+
+:func:`params_from_jax` takes the JAX parameter pytree of a dense decoder --
+as nested dicts of numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``
+of ``build_model(cfg).init(PRNGKey(0))[0]`` -- and returns the port's params
+with the same structure, shapes, dtypes and values. No JAX is imported here.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models.config import ModelConfig
+
+
+def param_shapes(cfg: ModelConfig) -> Dict:
+    """The shape tree of a dense decoder's params (layer leaves stacked)."""
+    L, d, H, K = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd, f, V = cfg.head_dim, cfg.d_ff, cfg.padded_vocab
+    return {
+        "embed": {"table": (V, d)},
+        "blocks": {
+            "ln1": (L, d),
+            "attn": {"wq": (L, d, H, hd), "wk": (L, d, K, hd), "wv": (L, d, K, hd),
+                     "wo": (L, H, hd, d)},
+            "ln2": (L, d),
+            "ffn": {"wi": (L, d, f), "wg": (L, d, f), "wo": (L, f, d)},
+        },
+        "ln_f": (d,),
+    }
+
+
+def _to_torch(x: np.ndarray) -> torch.Tensor:
+    x = np.array(x)  # a writable copy: JAX hands out read-only buffers
+    if x.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: reinterpret the bits
+        return torch.from_numpy(x.view(np.uint16).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(x)
+
+
+def _convert(tree, shapes, device, path: Tuple[str, ...]):
+    if isinstance(shapes, dict):
+        if not isinstance(tree, dict) or set(tree) != set(shapes):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+            raise ValueError(f"params{list(path)}: expected keys {sorted(shapes)}, got {got}")
+        return {k: _convert(tree[k], shapes[k], device, path + (k,)) for k in shapes}
+    arr = np.asarray(tree)
+    if tuple(arr.shape) != tuple(shapes):
+        raise ValueError(f"params{list(path)}: expected shape {shapes}, got {arr.shape}")
+    return _to_torch(arr).to(device)
+
+
+def params_from_jax(params_np, cfg: ModelConfig, device="cuda"):
+    """JAX param pytree (numpy leaves) -> the port's params on ``device``."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1, item 8)")
+    device = resolve_device(device)
+    return _convert(params_np, param_shapes(cfg), device, ())

@@ -1,0 +1,175 @@
+"""Attention ops with implementation dispatch, the counterpart of
+:mod:`repro.kernels.ops`.
+
+``impl``:
+  * ``None`` (default) -- the hand-written CUDA kernel for CUDA tensors, its
+    plain PyTorch version for CPU tensors (the wrappers in
+    :mod:`repro_torch.kernels.flash_attention` / ``paged_attention`` decide
+    from the tensors' device; a CUDA tensor never falls back);
+  * ``"ref"`` -- the quadratic oracles of :mod:`repro_torch.kernels.ref`,
+    for tests and for ``chip_smoke.py``'s comparisons only.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+_IMPLS = (None, "ref")
+
+
+def _check_impl(impl: Optional[str]) -> None:
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected one of {_IMPLS}")
+
+
+# =============================== flash attention ===============================
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, K, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_start: int = 0,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    _check_impl(impl)
+    if impl == "ref":
+        return _ref.attention_ref(q, k, v, causal=causal, window=window, q_start=q_start)
+    return flash_attention_cuda(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        causal=causal, window=window, q_start=q_start,
+    )
+
+
+# =============================== paged decode attention ===============================
+def paged_attention(
+    q: torch.Tensor,  # (B, H, D) -- one query token per sequence
+    pool_k: torch.Tensor,  # (P_local, T, K, D) -- bf16/f32
+    pool_v: torch.Tensor,
+    tables: torch.Tensor,  # (B, R) global page ids
+    page_pos: torch.Tensor,  # (B, R) absolute position of slot 0 of each page
+    lengths: torch.Tensor,  # (B,) tokens cached (incl. the one just written)
+    *,
+    scale_k: Optional[torch.Tensor] = None,
+    scale_v: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+    page_offset: int = 0,
+    axis_names: Sequence[str] = (),
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """Decode attention over the paged pool (the paper's striped-page READ):
+    the kernel's unnormalised ``(o, m, l)`` become ``o / max(l, 1e-30)`` in
+    q's dtype."""
+    _check_impl(impl)
+    if pool_k.dtype == torch.int8 or scale_k is not None or scale_v is not None:
+        raise NotImplementedError(
+            "int8 KV pools are not ported yet (ROADMAP Queue 1, item 6)"
+        )
+    if axis_names:
+        raise NotImplementedError(
+            "the split-K combine across pool shards is not ported yet (ROADMAP Queue 1, item 9)"
+        )
+    if impl == "ref":
+        return _ref.paged_attention_ref(
+            q, pool_k, pool_v, tables, page_pos, lengths, window=window
+        )
+    o, m, l = paged_attention_cuda(
+        q.contiguous(), pool_k, pool_v, tables.to(torch.int32).contiguous(),
+        page_pos.to(torch.int32).contiguous(), lengths.to(torch.int32).contiguous(),
+        window=window, page_offset=page_offset,
+    )
+    return (o / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+def quantize_token(x):
+    raise NotImplementedError("int8 KV quantization is not ported yet (ROADMAP Queue 1, item 6)")
+
+
+def dequantize_pool(pool, scale):
+    raise NotImplementedError("int8 KV dequantization is not ported yet (ROADMAP Queue 1, item 6)")
+
+
+# =============================== paged cache update ===============================
+def paged_update(
+    pool_k: torch.Tensor,  # (P_local, T, K, D)
+    pool_v: torch.Tensor,
+    tables: torch.Tensor,  # (B, R)
+    page_pos: torch.Tensor,  # (B, R)
+    lengths: torch.Tensor,  # (B,) tokens cached so far; new token lands at this position
+    new_k: torch.Tensor,  # (B, K, D) -- pre-rotated
+    new_v: torch.Tensor,
+    *,
+    scale_k: Optional[torch.Tensor] = None,
+    scale_v: Optional[torch.Tensor] = None,
+    page_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Append one token per sequence (the paper's page WRITE).
+
+    Unlike the JAX version, which returns new arrays, this writes ``pool_k``
+    and ``pool_v`` IN PLACE and returns them with a new ``page_pos``. Rows
+    whose target page is not local to ``[0, P_local)`` are dropped (the JAX
+    version makes them positive out-of-bounds ids for its dropping scatter;
+    a torch index would wrap a negative id or fault on a large one), which
+    costs one host synchronisation to select the kept rows.
+    """
+    if pool_k.dtype == torch.int8 or scale_k is not None or scale_v is not None:
+        raise NotImplementedError(
+            "int8 KV pools are not ported yet (ROADMAP Queue 1, item 6)"
+        )
+    P_loc, T, K, D = pool_k.shape
+    B, R = tables.shape
+    pos = lengths.long()  # 0-indexed position of the incoming token
+    r = torch.div(pos, T, rounding_mode="floor") % R
+    slot = pos % T
+    b_idx = torch.arange(B, device=tables.device)
+    local = tables[b_idx, r].long() - page_offset
+    rows = ((local >= 0) & (local < P_loc)).nonzero().squeeze(1)  # the one host sync
+    pool_k[local[rows], slot[rows]] = new_k[rows].to(pool_k.dtype)
+    pool_v[local[rows], slot[rows]] = new_v[rows].to(pool_v.dtype)
+    # recycling a ring page: its slot-0 absolute position becomes pos
+    new_base = torch.where(slot == 0, pos.to(page_pos.dtype), page_pos[b_idx, r])
+    page_pos = page_pos.clone()
+    page_pos[b_idx, r] = new_base
+    return pool_k, pool_v, page_pos
+
+
+def prefill_into_pages(
+    k: torch.Tensor,  # (B, S, K, D) pre-rotated
+    v: torch.Tensor,
+    page_tokens: int,
+    extra_pages: int = 1,
+    pad_pages_to: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Lay out freshly pref't K/V as pages: request b's page p is pool page
+    ``b*R + p``. ``extra_pages`` empty pages per sequence give decode
+    headroom; ``pad_pages_to`` pads the pool's page count. Returns
+    (pool_k, pool_v, tables, page_pos)."""
+    B, S, K, D = k.shape
+    T = page_tokens
+    if S % T:
+        raise ValueError(f"sequence length {S} is not a multiple of the page size {T}")
+    Rf = S // T
+    R = Rf + extra_pages
+    pk = k.reshape(B, Rf, T, K, D)
+    pv = v.reshape(B, Rf, T, K, D)
+    if extra_pages:
+        pad = torch.zeros((B, extra_pages, T, K, D), dtype=k.dtype, device=k.device)
+        pk = torch.cat([pk, pad], dim=1)
+        pv = torch.cat([pv, pad], dim=1)
+    pool_k = pk.reshape(B * R, T, K, D)
+    pool_v = pv.reshape(B * R, T, K, D)
+    n_pool = -(-(B * R) // pad_pages_to) * pad_pages_to
+    if n_pool > B * R:
+        tail = torch.zeros((n_pool - B * R, T, K, D), dtype=k.dtype, device=k.device)
+        pool_k = torch.cat([pool_k, tail], dim=0)
+        pool_v = torch.cat([pool_v, tail], dim=0)
+    tables = torch.arange(B * R, dtype=torch.int32, device=k.device).reshape(B, R)
+    page_pos = (torch.arange(R, dtype=torch.int32, device=k.device) * T)[None, :].repeat(B, 1)
+    return pool_k, pool_v, tables, page_pos

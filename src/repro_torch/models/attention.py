@@ -1,0 +1,137 @@
+"""GQA attention: prefill (flash) and paged decode, the single-device
+counterpart of :mod:`repro.models.attention`.
+
+Weight layouts are the JAX package's: ``wq (d, H, hd)``, ``wk``/``wv
+(d, K, hd)``, ``wo (H, hd, d)``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_rope
+from repro_torch.models.modules import dense_init
+
+
+def attention_init(gen: torch.Generator, cfg: ModelConfig):
+    d, H, K, hd, dt = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.pdtype()
+    return {
+        "wq": dense_init(gen, d, (H, hd), dt),
+        "wk": dense_init(gen, d, (K, hd), dt),
+        "wv": dense_init(gen, d, (K, hd), dt),
+        "wo": dense_init(gen, H * hd, (d,), dt).reshape(H, hd, d),
+    }
+
+
+def _project(x: torch.Tensor, w: torch.Tensor, ct: torch.dtype) -> torch.Tensor:
+    """(B, S, d) x (d, N, hd) -> (B, S, N, hd)."""
+    d, n, hd = w.shape
+    return (x @ w.to(ct).reshape(d, n * hd)).reshape(*x.shape[:-1], n, hd)
+
+
+def qkv(params, x: torch.Tensor, cfg: ModelConfig, positions: Optional[torch.Tensor]):
+    """Project + rotate. x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,K,hd)."""
+    ct = cfg.cdtype()
+    q = _project(x, params["wq"], ct)
+    k = _project(x, params["wk"], ct)
+    v = _project(x, params["wv"], ct)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def out_proj(params, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    wo = params["wo"].to(cfg.cdtype())
+    H, hd, d = wo.shape
+    return o.reshape(*o.shape[:-2], H * hd) @ wo.reshape(H * hd, d)
+
+
+def attention_train(
+    params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    return_kv: bool = False,
+    impl: Optional[str] = None,
+):
+    """Full-sequence causal self-attention (prefill). With ``return_kv`` also
+    returns the rotated ``(k, v)`` for the paged cache."""
+    q, k, v = qkv(params, x, cfg, None)
+    o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window, impl=impl)
+    out = out_proj(params, o, cfg)
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+# ------------------------------- paged decode --------------------------------
+
+CacheLayer = Dict[str, torch.Tensor]  # pool_k, pool_v, tables, page_pos
+
+
+def attention_decode(
+    params,
+    x: torch.Tensor,  # (B, 1, d)
+    cache: CacheLayer,
+    lengths: torch.Tensor,  # (B,) tokens already cached (new token position)
+    cfg: ModelConfig,
+    *,
+    impl: Optional[str] = None,
+) -> Tuple[torch.Tensor, CacheLayer]:
+    """One decode step: append this token's K/V (paper WRITE, in place into
+    the cache's pools), then attend over the paged pool (paper READ)."""
+    q, k, v = qkv(params, x, cfg, lengths[:, None])
+    q1, k1, v1 = q[:, 0], k[:, 0], v[:, 0]  # (B, H/K, hd)
+    pool_k, pool_v, page_pos = ops.paged_update(
+        cache["pool_k"], cache["pool_v"], cache["tables"], cache["page_pos"], lengths, k1, v1,
+        scale_k=cache.get("scale_k"), scale_v=cache.get("scale_v"),
+    )
+    o = ops.paged_attention(
+        q1, pool_k, pool_v, cache["tables"], page_pos, lengths + 1,
+        window=cfg.sliding_window, impl=impl,
+    )
+    new_cache = dict(cache, pool_k=pool_k, pool_v=pool_v, page_pos=page_pos)
+    return out_proj(params, o[:, None], cfg), new_cache
+
+
+def init_decode_cache(
+    cfg: ModelConfig,
+    batch: int,
+    seq_len: int,
+    n_layers: int,
+    dtype: Optional[torch.dtype] = None,
+    *,
+    device,
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Allocate an empty paged cache for ``n_layers`` attention layers.
+
+    With a sliding window the per-sequence ring is only ``window/T + 1`` pages
+    (rolling buffer); otherwise ``seq_len/T`` pages. Returns (cache, lengths);
+    each cache leaf is stacked over layers: pool_k (L, P, T, K, hd).
+    """
+    T = cfg.kv_page_tokens
+    dtype = dtype or cfg.kvdtype()
+    if dtype == torch.int8:
+        raise NotImplementedError("int8 KV pools are not ported yet (ROADMAP Queue 1, item 6)")
+    if cfg.sliding_window is not None and cfg.sliding_window < seq_len:
+        ring = cfg.sliding_window // T + 1
+    else:
+        ring = max(seq_len // T, 1)
+    n_pages = batch * ring
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    tables = torch.arange(n_pages, dtype=torch.int32, device=device).reshape(batch, ring)
+    page_pos = (torch.arange(ring, dtype=torch.int32, device=device) * T)[None, :].repeat(batch, 1)
+    cache = {
+        "pool_k": torch.zeros((n_layers, n_pages, T, K, hd), dtype=dtype, device=device),
+        "pool_v": torch.zeros((n_layers, n_pages, T, K, hd), dtype=dtype, device=device),
+        "tables": tables[None].repeat(n_layers, 1, 1),
+        "page_pos": page_pos[None].repeat(n_layers, 1, 1),
+    }
+    lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
+    return cache, lengths

@@ -1,0 +1,110 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here is marked ``cuda`` and skips where there is no card. On a
+machine with one (and ``nvcc``; the kernels build on first use):
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+No JAX here: the card's machine need not have it. The plain versions are
+held to the JAX package by tests/test_torch_kernels.py on the CPU.
+Tolerances: flash 2e-5 (f32) / 2e-2 (bf16), paged 3e-5 / 3e-2.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+TOL = {"flash": {"float32": 2e-5, "bfloat16": 2e-2}, "paged": {"float32": 3e-5, "bfloat16": 3e-2}}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def close(got, want, tol):
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+# (B, S, T, H, K, D, window, dtype)
+PAGED_CASES = [
+    (2, 64, 8, 4, 4, 64, None, "float32"),
+    (2, 64, 8, 4, 1, 128, None, "bfloat16"),
+    (2, 128, 16, 4, 4, 32, 48, "float32"),
+    (1, 256, 32, 2, 2, 64, 100, "bfloat16"),
+    (8, 224, 64, 32, 8, 64, None, "bfloat16"),  # llama3.2-1b serving shape
+    (3, 256, 64, 16, 2, 128, None, "float32"),  # > 48 KB of shared memory
+]
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_cuda_matches_plain(dev, case):
+    B, S, T, H, K, D, window, dtype = case
+    rng = np.random.default_rng(3)
+    R = S // T + 1
+    P = B * R + 2
+    dt = getattr(torch, dtype)
+    q, pool_k, pool_v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(dev, dt)
+                         for s in ((B, H, D), (P, T, K, D), (P, T, K, D)))
+    tables = rng.permutation(P)[: B * R].reshape(B, R).astype(np.int32)
+    tables[-1] = P  # an inactive row: all sentinel, length 0
+    page_pos = np.repeat((np.arange(R, dtype=np.int32) * T)[None], B, axis=0)
+    lengths = rng.integers(1, S + 1, size=B).astype(np.int32)
+    lengths[-1] = 0
+    args = [q, pool_k, pool_v] + [torch.from_numpy(a).to(dev) for a in (tables, page_pos, lengths)]
+    n = paged_attention_cuda.launches
+    o, m, l = paged_attention_cuda(*args, window=window)
+    po, pm, pl = paged_attention_plain(*args, window=window)
+    torch.cuda.synchronize()
+    assert paged_attention_cuda.launches == n + 1
+    assert (o[-1] == 0).all() and (l[-1] == 0).all() and (m[-1] == -1e30).all()
+    for g, w in zip((o, m, l), (po, pm, pl)):
+        close(g, w, TOL["paged"][dtype])
+
+
+# (B, Sq, Sk, H, K, D, causal, window, q_start, dtype)
+FLASH_CASES = [
+    (1, 128, 128, 4, 4, 64, True, None, 0, "float32"),
+    (2, 256, 256, 4, 2, 64, True, None, 0, "float32"),
+    (1, 128, 128, 8, 1, 128, True, None, 0, "bfloat16"),
+    (2, 128, 128, 4, 4, 32, False, None, 0, "float32"),
+    (1, 256, 256, 2, 2, 64, True, 64, 0, "float32"),
+    (1, 512, 512, 2, 1, 64, True, 128, 0, "bfloat16"),
+    (2, 128, 256, 4, 4, 64, False, None, 0, "float32"),
+    (1, 192, 192, 32, 8, 64, True, None, 0, "bfloat16"),  # llama3.2-1b prefill shape
+    (2, 100, 100, 4, 2, 16, True, 48, 0, "float32"),  # ragged, smoke head_dim
+    (1, 64, 192, 4, 1, 32, True, None, 128, "float32"),  # q_start offset
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_cuda_matches_plain(dev, case):
+    B, Sq, Sk, H, K, D, causal, window, q_start, dtype = case
+    rng = np.random.default_rng(42)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(dev, dt)
+               for s in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D)))
+    n = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window, q_start=q_start)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window, q_start=q_start)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == n + 1
+    assert got.dtype == dt
+    close(got, want, TOL["flash"][dtype])
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    q = torch.zeros((1, 4, 2, 16), device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention_cuda(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+    with pytest.raises(ValueError, match="device"):
+        flash_attention_cuda(q, q.cpu(), q)

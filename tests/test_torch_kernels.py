@@ -1,0 +1,305 @@
+"""Port kernels vs the JAX package: the plain PyTorch versions of the paged
+decode and flash prefill kernels against the Pallas kernels run in interpret
+mode, and the page-layout ops against ``repro.kernels.ops``. Inputs are made
+with numpy from a seed and handed to both packages.
+
+Tolerances are those of tests/test_kernels.py: flash 2e-5 (f32) / 2e-2
+(bf16), paged 3e-5 / 3e-2.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
+from repro.kernels.paged_attention import paged_attention_pallas  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain  # noqa: E402
+
+TOL = {"flash": {"float32": 2e-5, "bfloat16": 2e-2}, "paged": {"float32": 3e-5, "bfloat16": 3e-2}}
+NEG_INF = -1e30
+
+
+def both(x: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor (bf16 rounding of
+    the f32 numpy input is round-to-nearest-even in both)."""
+    return jnp.asarray(x).astype(dtype), torch.from_numpy(np.ascontiguousarray(x)).to(getattr(torch, dtype))
+
+
+def as_np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def close(got, want, tol):
+    np.testing.assert_allclose(as_np(got), as_np(want), rtol=tol, atol=tol)
+
+
+# ------------------------------ paged attention ------------------------------
+# (B, S, T, H, K, D, window, dtype): tests/test_kernels.py PAGED_CASES, plus
+# the default page size of llama3.2-1b (T=64, D=64)
+PAGED_CASES = [
+    (2, 64, 8, 4, 4, 64, None, "float32"),
+    (3, 128, 16, 8, 2, 64, None, "float32"),
+    (2, 64, 8, 4, 1, 128, None, "bfloat16"),
+    (2, 128, 16, 4, 4, 32, 48, "float32"),
+    (1, 256, 32, 2, 2, 64, 100, "bfloat16"),
+    (3, 192, 64, 32, 8, 64, None, "bfloat16"),
+]
+
+
+def paged_inputs(seed, B, S, T, H, K, D, dtype, extra_pages=2):
+    """Random pool with every sequence's pages scattered through it in a
+    random order (one headroom page per sequence), random lengths <= S."""
+    rng = np.random.default_rng(seed)
+    R = S // T + 1
+    P = B * R + extra_pages
+    pool_k = rng.standard_normal((P, T, K, D), dtype=np.float32)
+    pool_v = rng.standard_normal((P, T, K, D), dtype=np.float32)
+    q = rng.standard_normal((B, H, D), dtype=np.float32)
+    tables = rng.permutation(P)[: B * R].reshape(B, R).astype(np.int32)
+    page_pos = np.repeat((np.arange(R, dtype=np.int32) * T)[None], B, axis=0)
+    lengths = rng.integers(1, S + 1, size=B).astype(np.int32)
+    lengths[0] = S
+    return q, pool_k, pool_v, tables, page_pos, lengths
+
+
+def run_paged(q, pool_k, pool_v, tables, page_pos, lengths, dtype, window):
+    jq, tq = both(q, dtype)
+    jk, tk = both(pool_k, dtype)
+    jv, tv = both(pool_v, dtype)
+    want = paged_attention_pallas(
+        jq, jk, jv, jnp.asarray(tables), jnp.asarray(page_pos), jnp.asarray(lengths),
+        window=window, interpret=True,
+    )
+    got = paged_attention_plain(
+        tq, tk, tv, torch.from_numpy(tables), torch.from_numpy(page_pos),
+        torch.from_numpy(lengths), window=window,
+    )
+    return got, want
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_plain_matches_pallas(case):
+    B, S, T, H, K, D, window, dtype = case
+    inputs = paged_inputs(3, B, S, T, H, K, D, dtype)
+    got, want = run_paged(*inputs, dtype, window)
+    tol = TOL["paged"][dtype]
+    for g, w in zip(got, want):  # o, m, l themselves, unnormalised
+        close(g, w, tol)
+
+
+def test_paged_plain_ring_page_pos_matches_pallas():
+    """A sliding-window ring: the first page was recycled and now holds the
+    newest positions, so page_pos is not increasing along the table."""
+    B, T, H, K, D, window = 2, 4, 4, 2, 32, 8
+    R = window // T + 1
+    rng = np.random.default_rng(11)
+    P = B * R
+    pool_k = rng.standard_normal((P, T, K, D), dtype=np.float32)
+    pool_v = rng.standard_normal((P, T, K, D), dtype=np.float32)
+    q = rng.standard_normal((B, H, D), dtype=np.float32)
+    tables = np.arange(P, dtype=np.int32).reshape(B, R)
+    page_pos = np.array([[12, 4, 8], [12, 16, 8]], np.int32)
+    lengths = np.array([14, 19], np.int32)
+    got, want = run_paged(q, pool_k, pool_v, tables, page_pos, lengths, "float32", window)
+    for g, w in zip(got, want):
+        close(g, w, TOL["paged"]["float32"])
+
+
+def test_paged_plain_sentinel_row_is_zero_not_nan():
+    """The engine's inactive rows: every table entry is the out-of-range
+    sentinel P and the length is 0. They must give o=0, l=0, m=-1e30."""
+    B, S, T, H, K, D = 3, 64, 16, 4, 2, 32
+    q, pool_k, pool_v, tables, page_pos, lengths = paged_inputs(5, B, S, T, H, K, D, "float32")
+    P = pool_k.shape[0]
+    tables[1] = P
+    lengths[1] = 0
+    got, want = run_paged(q, pool_k, pool_v, tables, page_pos, lengths, "float32", None)
+    o, m, l = (as_np(t) for t in got)
+    assert np.isfinite(o).all() and np.isfinite(m).all() and np.isfinite(l).all()
+    np.testing.assert_array_equal(o[1], 0.0)
+    np.testing.assert_array_equal(l[1], 0.0)
+    np.testing.assert_array_equal(m[1], np.float32(NEG_INF))
+    for g, w in zip(got, want):
+        close(g, w, TOL["paged"]["float32"])
+    out = ops.paged_attention(
+        torch.from_numpy(q), torch.from_numpy(pool_k), torch.from_numpy(pool_v),
+        torch.from_numpy(tables), torch.from_numpy(page_pos), torch.from_numpy(lengths),
+    )
+    assert torch.isfinite(out).all() and (out[1] == 0).all()
+
+
+@pytest.mark.parametrize("impl", [None, "ref"])
+@pytest.mark.parametrize("case", [PAGED_CASES[1], PAGED_CASES[4]])
+def test_paged_attention_op_matches_jax_ref(case, impl):
+    B, S, T, H, K, D, window, dtype = case
+    q, pool_k, pool_v, tables, page_pos, lengths = paged_inputs(7, B, S, T, H, K, D, dtype)
+    jq, tq = both(q, dtype)
+    jk, tk = both(pool_k, dtype)
+    jv, tv = both(pool_v, dtype)
+    want = jref.paged_attention_ref(
+        jq, jk, jv, jnp.asarray(tables), jnp.asarray(page_pos), jnp.asarray(lengths), window=window
+    )
+    got = ops.paged_attention(
+        tq, tk, tv, torch.from_numpy(tables), torch.from_numpy(page_pos),
+        torch.from_numpy(lengths), window=window, impl=impl,
+    )
+    assert got.dtype == tq.dtype
+    close(got, want, TOL["paged"][dtype])
+
+
+def test_online_softmax_combine_matches_jax():
+    rng = np.random.default_rng(2)
+    o = rng.standard_normal((3, 2, 4, 8), dtype=np.float32)
+    m = rng.standard_normal((3, 2, 4), dtype=np.float32)
+    l = rng.uniform(0.5, 2.0, (3, 2, 4)).astype(np.float32)
+    want = jref.online_softmax_combine(jnp.asarray(o), jnp.asarray(m), jnp.asarray(l))
+    got = ref.online_softmax_combine(torch.from_numpy(o), torch.from_numpy(m), torch.from_numpy(l))
+    close(got, want, 1e-6)
+
+
+def test_not_ported_branches_raise():
+    x = torch.zeros((1, 1, 1, 4))
+    pool = torch.zeros((1, 1, 1, 4), dtype=torch.int8)
+    t = torch.zeros((1, 1), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.paged_attention(x[0], pool, pool, t, t, t[0])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.paged_attention(x[0], x, x, t, t, t[0], axis_names=("model",))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.quantize_token(x)
+
+
+# ------------------------------ flash attention ------------------------------
+# (B, Sq, Sk, H, K, D, causal, window, dtype): tests/test_kernels.py FLASH_CASES
+FLASH_CASES = [
+    (1, 128, 128, 4, 4, 64, True, None, "float32"),
+    (2, 256, 256, 4, 2, 64, True, None, "float32"),
+    (1, 128, 128, 8, 1, 128, True, None, "bfloat16"),
+    (2, 128, 128, 4, 4, 32, False, None, "float32"),
+    (1, 256, 256, 2, 2, 64, True, 64, "float32"),
+    (1, 512, 512, 2, 1, 64, True, 128, "bfloat16"),
+    (2, 128, 256, 4, 4, 64, False, None, "float32"),
+]
+
+
+def flash_inputs(seed, B, Sq, Sk, H, K, D):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, D), dtype=np.float32),
+            rng.standard_normal((B, Sk, K, D), dtype=np.float32),
+            rng.standard_normal((B, Sk, K, D), dtype=np.float32))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_plain_matches_pallas(case):
+    B, Sq, Sk, H, K, D, causal, window, dtype = case
+    (jq, tq), (jk, tk), (jv, tv) = (both(x, dtype) for x in flash_inputs(42, B, Sq, Sk, H, K, D))
+    want = flash_attention_pallas(jq, jk, jv, causal=causal, window=window,
+                                  block_q=64, block_k=64, interpret=True)
+    got = flash_attention_plain(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tq.dtype
+    close(got, want, TOL["flash"][dtype])
+
+
+# The Pallas wrapper asserts Sq % block_q == 0, so these are held against
+# repro.kernels.ref.attention_ref: a ragged 192-token prompt (3 pages of 64),
+# and a q_start offset (a chunk of queries after 128 cached keys).
+RAGGED_CASES = [
+    (1, 192, 192, 32, 8, 64, True, None, 0, "bfloat16"),
+    (1, 192, 192, 4, 2, 64, True, None, 0, "float32"),
+    (2, 100, 100, 4, 2, 16, True, 48, 0, "float32"),
+    (1, 64, 192, 4, 1, 32, True, None, 128, "float32"),
+]
+
+
+@pytest.mark.parametrize("impl", [None, "ref"])
+@pytest.mark.parametrize("case", RAGGED_CASES)
+def test_flash_op_ragged_matches_jax_ref(case, impl):
+    B, Sq, Sk, H, K, D, causal, window, q_start, dtype = case
+    (jq, tq), (jk, tk), (jv, tv) = (both(x, dtype) for x in flash_inputs(9, B, Sq, Sk, H, K, D))
+    want = jref.attention_ref(jq, jk, jv, causal=causal, window=window, q_start=q_start)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window, q_start=q_start, impl=impl)
+    close(got, want, TOL["flash"][dtype])
+
+
+def test_wrappers_take_plain_version_on_cpu_without_counting():
+    q, k, v = (torch.from_numpy(x) for x in flash_inputs(1, 1, 32, 32, 4, 2, 16))
+    n_flash, n_paged = flash_attention_cuda.launches, paged_attention_cuda.launches
+    torch.testing.assert_close(flash_attention_cuda(q, k, v), flash_attention_plain(q, k, v))
+    inputs = [torch.from_numpy(x) for x in paged_inputs(1, 2, 32, 8, 4, 2, 16, "float32")]
+    for g, w in zip(paged_attention_cuda(*inputs), paged_attention_plain(*inputs)):
+        torch.testing.assert_close(g, w)
+    assert (flash_attention_cuda.launches, paged_attention_cuda.launches) == (n_flash, n_paged)
+
+
+# ------------------------------ page-layout ops ------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("page_offset", [0, 4])
+def test_paged_update_matches_jax(dtype, page_offset):
+    """One appended token per row, incl. a row whose page is the sentinel
+    (dropped) and, with an offset, rows whose pages are not local."""
+    B, T, K, D, R, P = 4, 8, 2, 16, 3, 12
+    rng = np.random.default_rng(4)
+    pool_k = rng.standard_normal((P, T, K, D), dtype=np.float32)
+    pool_v = rng.standard_normal((P, T, K, D), dtype=np.float32)
+    tables = rng.permutation(P)[: B * R].reshape(B, R).astype(np.int32)
+    tables[2] = P + page_offset  # sentinel: not in [0, P) after the offset
+    page_pos = np.repeat((np.arange(R, dtype=np.int32) * T)[None], B, axis=0)
+    lengths = np.array([0, 9, 5, 16], np.int32)
+    new_k = rng.standard_normal((B, K, D), dtype=np.float32)
+    new_v = rng.standard_normal((B, K, D), dtype=np.float32)
+    jk, tk = both(pool_k, dtype)
+    jv, tv = both(pool_v, dtype)
+    want = jops.paged_update(jk, jv, jnp.asarray(tables), jnp.asarray(page_pos),
+                             jnp.asarray(lengths), jnp.asarray(new_k), jnp.asarray(new_v),
+                             page_offset=page_offset)
+    got = ops.paged_update(tk, tv, torch.from_numpy(tables), torch.from_numpy(page_pos),
+                           torch.from_numpy(lengths), torch.from_numpy(new_k),
+                           torch.from_numpy(new_v), page_offset=page_offset)
+    assert got[0] is tk and got[1] is tv  # in place
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(as_np(g), as_np(w))
+
+
+def test_paged_update_ring_rollover_matches_jax():
+    """SWA ring: 14 appends wrap a 3-page ring; pools and page_pos agree
+    with the JAX version after every step."""
+    B, T, K, D = 1, 4, 2, 8
+    R = 8 // T + 1
+    rng = np.random.default_rng(12)
+    jk = jv = jnp.zeros((B * R, T, K, D), jnp.float32)
+    tk, tv = torch.zeros((B * R, T, K, D)), torch.zeros((B * R, T, K, D))
+    tables = np.arange(B * R, dtype=np.int32).reshape(B, R)
+    jpp = jnp.asarray((np.arange(R, dtype=np.int32) * T)[None])
+    tpp = torch.from_numpy(np.array(jpp))
+    for t in range(14):
+        nk = rng.standard_normal((B, K, D), dtype=np.float32)
+        nv = rng.standard_normal((B, K, D), dtype=np.float32)
+        length = np.full((B,), t, np.int32)
+        jk, jv, jpp = jops.paged_update(jk, jv, jnp.asarray(tables), jpp, jnp.asarray(length),
+                                        jnp.asarray(nk), jnp.asarray(nv))
+        tk, tv, tpp = ops.paged_update(tk, tv, torch.from_numpy(tables), tpp, torch.from_numpy(length),
+                                       torch.from_numpy(nk), torch.from_numpy(nv))
+        np.testing.assert_array_equal(tpp.numpy(), np.asarray(jpp))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("extra_pages,pad_pages_to", [(1, 1), (0, 1), (2, 4)])
+def test_prefill_into_pages_matches_jax(extra_pages, pad_pages_to):
+    B, S, T, K, D = 2, 32, 8, 2, 16
+    rng = np.random.default_rng(6)
+    k = rng.standard_normal((B, S, K, D), dtype=np.float32)
+    v = rng.standard_normal((B, S, K, D), dtype=np.float32)
+    want = jops.prefill_into_pages(jnp.asarray(k), jnp.asarray(v), T, extra_pages, pad_pages_to)
+    got = ops.prefill_into_pages(torch.from_numpy(k), torch.from_numpy(v), T, extra_pages, pad_pages_to)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

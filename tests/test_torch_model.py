@@ -1,0 +1,205 @@
+"""Port model vs the JAX package on ``get_config("llama3_2-1b").smoke()``:
+weight conversion, layers, prefill and decode logits; plus the port's import
+hygiene (it must never pull in JAX or the JAX package)."""
+
+import dataclasses
+import functools
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
+from repro.models.lm import build_model as jax_build_model  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
+from repro_torch.models.lm import build_model  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def configs(**overrides):
+    """The same smoke config in both packages."""
+    jcfg = dataclasses.replace(jax_get_config("llama3_2-1b").smoke(), **overrides)
+    tcfg = dataclasses.replace(get_config("llama3_2-1b").smoke(), **overrides)
+    return jcfg, tcfg
+
+
+def jax_params(jcfg):
+    params, _ = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
+    return jax.tree.map(np.asarray, params)
+
+
+def as_np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+# ------------------------------ weights ------------------------------
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_params_from_jax_round_trip(param_dtype):
+    jcfg, tcfg = configs(param_dtype=param_dtype)
+    pnp = jax_params(jcfg)
+    tp = params_from_jax(pnp, tcfg, device="cpu")
+    flat_j = jax.tree_util.tree_flatten_with_path(pnp)[0]
+    for path, leaf in flat_j:
+        t = tp
+        for key in path:
+            t = t[key.key]
+        assert t.dtype == getattr(torch, param_dtype)
+        assert tuple(t.shape) == leaf.shape
+        back = t.view(torch.int16).numpy().view(leaf.dtype) if param_dtype == "bfloat16" else t.numpy()
+        np.testing.assert_array_equal(back, leaf)
+    # a port init has the very same structure and shapes
+    init = build_model(tcfg).init(seed=0, device="cpu")
+    flat_t = jax.tree_util.tree_flatten_with_path(jax.tree.map(lambda t: tuple(t.shape), init,
+                                                               is_leaf=lambda x: isinstance(x, torch.Tensor)),
+                                                  is_leaf=lambda x: isinstance(x, tuple))[0]
+    assert [(jax.tree_util.keystr(p), s) for p, s in flat_t] == [
+        (jax.tree_util.keystr(p), leaf.shape) for p, leaf in flat_j
+    ]
+
+
+def test_params_from_jax_rejects_mismatch():
+    jcfg, tcfg = configs()
+    pnp = jax_params(jcfg)
+    pnp["blocks"]["attn"]["wq"] = pnp["blocks"]["attn"]["wq"][:1]
+    with pytest.raises(ValueError, match="wq"):
+        params_from_jax(pnp, tcfg, device="cpu")
+    del pnp["ln_f"]
+    with pytest.raises(ValueError, match="keys"):
+        params_from_jax(pnp, tcfg, device="cpu")
+
+
+# ------------------------------ layers ------------------------------
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-6), ("bfloat16", 1e-2)])
+def test_layers_match_jax(dtype, tol):
+    jcfg, tcfg = configs(compute_dtype=dtype)
+    rng = np.random.default_rng(0)
+    d, f = jcfg.d_model, jcfg.d_ff
+    x = rng.standard_normal((2, 5, d), dtype=np.float32)
+    scale = rng.uniform(0.5, 1.5, d).astype(np.float32)
+    jx, tx = jnp.asarray(x).astype(dtype), torch.from_numpy(x).to(getattr(torch, dtype))
+    np.testing.assert_allclose(
+        as_np(layers.rmsnorm(tx, torch.from_numpy(scale))),
+        as_np(jlayers.rmsnorm(jx, jnp.asarray(scale))), rtol=tol, atol=tol,
+    )
+    h = rng.standard_normal((2, 5, 4, 16), dtype=np.float32)
+    jh, th = jnp.asarray(h).astype(dtype), torch.from_numpy(h).to(getattr(torch, dtype))
+    for pos in (np.arange(5)[None, :], np.array([[7], [300]])):
+        ph = th[:, : pos.shape[1]]
+        np.testing.assert_allclose(
+            as_np(layers.apply_rope(ph, torch.from_numpy(pos), jcfg.rope_theta)),
+            as_np(jlayers.apply_rope(jh[:, : pos.shape[1]], jnp.asarray(pos), jcfg.rope_theta)),
+            rtol=tol, atol=tol,
+        )
+    w = {k: rng.standard_normal(s, dtype=np.float32) * 0.1
+         for k, s in (("wi", (d, f)), ("wg", (d, f)), ("wo", (f, d)))}
+    np.testing.assert_allclose(
+        as_np(layers.mlp({k: torch.from_numpy(v) for k, v in w.items()}, tx, tcfg)),
+        as_np(jlayers.mlp({k: jnp.asarray(v) for k, v in w.items()}, jx, jcfg)),
+        rtol=tol, atol=tol,
+    )
+
+
+# ------------------------------ prefill + decode ------------------------------
+def _pallas_interpret(monkeypatch):
+    """Run the JAX model on its Pallas kernels in interpret mode: its default
+    XLA decode path casts q to the pool dtype, its kernels do not."""
+    def force(fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kw):
+            return fn(*args, **{**kw, "impl": "pallas", "interpret": True})
+        return wrapped
+
+    monkeypatch.setattr(jops, "flash_attention", force(jops.flash_attention))
+    monkeypatch.setattr(jops, "paged_attention", force(jops.paged_attention))
+
+
+# f32 pools: the JAX model's default XLA path, held to 1e-4. bf16 pools: the
+# JAX model on its Pallas kernels (interpret mode); K/V are rounded to bf16
+# in both, and a 1e-7 difference in f32 can round a cached value to the
+# neighbouring bf16 number, so logits are held to 2e-3.
+@pytest.mark.parametrize("kv_dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-3)])
+def test_prefill_and_decode_logits_match_jax(kv_dtype, tol, monkeypatch):
+    if kv_dtype == "bfloat16":
+        _pallas_interpret(monkeypatch)
+    jcfg, tcfg = configs(kv_cache_dtype=kv_dtype)
+    jmodel, tmodel = jax_build_model(jcfg), build_model(tcfg)
+    pnp = jax_params(jcfg)
+    jp = jax.tree.map(jnp.asarray, pnp)
+    tp = params_from_jax(pnp, tcfg, device="cpu")
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, jcfg.vocab_size, (2, 2 * jcfg.kv_page_tokens))
+
+    jlogits, jcache = jmodel.prefill(jp, {"tokens": jnp.asarray(tokens, jnp.int32)}, None)
+    tlogits, tcache = tmodel.prefill(tp, torch.from_numpy(tokens))
+    np.testing.assert_allclose(as_np(tlogits), as_np(jlogits), rtol=tol, atol=tol)
+    for name in ("pool_k", "pool_v"):
+        np.testing.assert_allclose(as_np(tcache["kv"][name]), as_np(jcache["kv"][name]),
+                                   rtol=tol, atol=tol)
+    for name in ("tables", "page_pos"):
+        np.testing.assert_array_equal(tcache["kv"][name].numpy(), np.asarray(jcache["kv"][name]))
+
+    for _ in range(3):
+        nxt = rng.integers(0, jcfg.vocab_size, 2)
+        jlogits, jcache = jmodel.decode_step(jp, jcache, jnp.asarray(nxt, jnp.int32), None)
+        tlogits, tcache = tmodel.decode_step(tp, tcache, torch.from_numpy(nxt))
+        np.testing.assert_allclose(as_np(tlogits), as_np(jlogits), rtol=tol, atol=tol)
+    np.testing.assert_array_equal(tcache["lengths"].numpy(), np.asarray(jcache["lengths"]))
+    np.testing.assert_array_equal(tcache["kv"]["page_pos"].numpy(), np.asarray(jcache["kv"]["page_pos"]))
+
+
+def test_init_cache_matches_jax():
+    jcfg, tcfg = configs(kv_cache_dtype="float32")
+    jc = jax_build_model(jcfg).init_cache(3, 4 * jcfg.kv_page_tokens)
+    tc = build_model(tcfg).init_cache(3, 4 * tcfg.kv_page_tokens, device="cpu")
+    for name in ("pool_k", "pool_v", "tables", "page_pos"):
+        np.testing.assert_array_equal(as_np(tc["kv"][name]), as_np(jc["kv"][name]))
+    np.testing.assert_array_equal(tc["lengths"].numpy(), np.asarray(jc["lengths"]))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-370m", "zamba2-2.7b",
+                                  "seamless-m4t-medium", "chameleon-34b"])
+def test_unported_families_raise(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(get_config(arch))
+
+
+# ------------------------------ import hygiene ------------------------------
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.serving.engine, repro_torch.launch.serve\n"
+        "import repro_torch.convert, repro_torch.kernels.ops, repro_torch.configs\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_port_sources_never_import_jax_or_repro():
+    pattern = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\.|from\s+repro\.|"
+                         r"import\s+repro\s*$|from\s+repro\s+import)", re.M)
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert offenders == []
