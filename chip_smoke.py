@@ -8,12 +8,15 @@ imports only ``torch``, ``numpy`` and ``src/repro_torch`` (never JAX or the
 JAX package), and it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the hand-written CUDA kernels from ``src/repro_torch/csrc``;
+2. builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` and
+   prints ptxas's register, shared-memory and spill counts for each;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it plus edge cases (inactive sentinel rows,
-   a ring ``page_pos``, a sliding window, ragged and offset prompts), and
-   times the kernel, the plain version and, where one exists, the single
-   PyTorch call that computes the same function;
+   a ring ``page_pos``, a sliding window, rows of up to 4096 tokens, ragged
+   and offset prompts, other head dims), and times the kernel, the plain
+   version and, where one exists, the single PyTorch call that computes the
+   same function, and the kernels under other launch plans (the paged
+   kernel's split count, the flash kernel's heads per CTA);
 4. serves 16 requests (a shared 128-token system prompt plus a 64-token tail
    each, 32 new tokens) through full-width ``llama3_2-1b`` (16 layers,
    d_model 2048, vocab 128256; random weights from seed 0) with 8 slots and
@@ -21,8 +24,8 @@ JAX package), and it:
    counting every kernel launch; then compares the logits of one of the
    engine's own batched decode steps, captured mid-run, and of one prefill
    and one decode step with the ``impl="ref"`` oracles;
-5. prints a JSON line with each kernel's launches, error and times, and, as
-   the last line, ``{"ok": true, "device": {...}}``.
+5. prints a JSON line with each kernel's launches, error, times and grid at
+   the main-path shape, and, as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero before the last line is printed.
 """
@@ -220,6 +223,50 @@ def bound_ms(nbytes, flops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# ------------------------------ launch sweep ------------------------------
+MAIN_LENGTHS = [193, 200, 0, 210, 224, 196, 0, 208]  # the engine mid-decode, 2 slots idle
+LONG_LENGTHS = [4096, 4000, 3900, 4096, 3500, 4096, 3000, 4096]
+
+
+def sweep(gen, flush) -> None:
+    """Time the kernels under launch plans other than the wrappers' own, at
+    the main-path shapes (and paged rows of up to 4096 tokens): the paged
+    kernel's split count S, the flash kernel's query heads per CTA. Each
+    plan is checked against the plain version first; these launches go
+    around the wrappers and are not counted."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+
+    n_sm = torch.cuda.get_device_properties(gen.device).multi_processor_count
+    for tag, lengths, R in (("main", MAIN_LENGTHS, 32), ("long", LONG_LENGTHS, 64)):
+        args, window = paged_case(gen, R=R, lengths=lengths)
+        q, pool_k, _, tables, _, lengths_t = args
+        shape = (q.shape[0], q.shape[1], pool_k.shape[2], q.shape[2], tables.shape[1], n_sm)
+        po, _, pl = pa.paged_attention_plain(*args, window=window)
+        live = lengths_t > 0
+        for S in (1, 2, 3, 4, 5, 8):
+            plan = pa.launch_plan(*shape, n_splits=S)
+            o, _, l = pa.launch(*args, window, 0, plan)
+            err = (o[live] / l[live][..., None] - po[live] / pl[live][..., None]).abs().max().item()
+            check(err <= TOL["paged_attention"], f"paged S={S} disagrees with plain ({err})")
+            ms = time_ms(lambda: pa.launch(*args, window, 0, plan), flush=flush)
+            mark = " (the wrapper's plan)" if S == pa.launch_plan(*shape).n_splits else ""
+            print(f"  sweep paged_attention {tag}: S={S}, {int(np.prod(plan.grid))} CTAs: "
+                  f"{ms:.4f} ms{mark}", flush=True)
+    (q, k, v), kw = flash_case(gen)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    shape = (q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3], q.dtype)
+    for hp in (1, 2, 4):
+        plan = fa.launch_plan(*shape, heads_per_cta=hp)
+        err = (fa.launch(q, k, v, kw["causal"], kw["window"], kw["q_start"], plan).float()
+               - want.float()).abs().max().item()
+        check(err <= TOL["flash_attention"], f"flash {hp} heads per CTA disagrees with plain ({err})")
+        ms = time_ms(lambda: fa.launch(q, k, v, kw["causal"], kw["window"], kw["q_start"], plan))
+        mark = " (the wrapper's plan)" if hp == fa.launch_plan(*shape).heads_per_cta else ""
+        print(f"  sweep flash_attention: {hp} heads per CTA, {int(np.prod(plan.grid))} CTAs: "
+              f"{ms:.4f} ms{mark}", flush=True)
+
+
 # ------------------------------ engine ------------------------------
 CAPTURE_STEP = 40  # a decode step of the second wave of 8 requests
 
@@ -262,7 +309,9 @@ def main() -> None:
         from repro_torch.configs import get_config
         from repro_torch.kernels import _build
         from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+        from repro_torch.kernels.flash_attention import launch_plan as flash_launch_plan
         from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
+        from repro_torch.kernels.paged_attention import launch_plan as paged_launch_plan
         from repro_torch.launch.profile_serve import PAGES, SLOTS, cell_requests, warm_up
         from repro_torch.models.lm import build_model
         from repro_torch.serving.engine import ServingEngine
@@ -285,22 +334,31 @@ def main() -> None:
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"build: {built or 'up to date'} in {time.perf_counter() - t0:.2f} s", flush=True)
+    ptxas = {name: _build.ptxas_report(name) for name in ("paged_attention", "flash_attention")}
+    for name, entries in ptxas.items():
+        check(bool(entries) and all(e["registers"] is not None for e in entries),
+              f"no ptxas report for {name}")
+    print(json.dumps({"ptxas": ptxas}), flush=True)
 
     # 3. kernels vs plain on the card
     print("kernels vs plain:", flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    main_lengths = [193, 200, 0, 210, 224, 196, 0, 208]  # the engine mid-decode, 2 slots idle
-    paged_main = paged_case(gen, lengths=main_lengths)
+    paged_main = paged_case(gen, lengths=MAIN_LENGTHS)
     errs = {"paged_attention": check_paged(*paged_main, "main path shape (B=8, R=32, P=512)")}
     errs["paged_attention"] = max(errs["paged_attention"], check_paged(
         *paged_case(gen, lengths=[300, 0, 129, 64, 1, 512, 77, 191], window=128, ring=3),
         "ring page_pos + window 128"))
+    errs["paged_attention"] = max(errs["paged_attention"], check_paged(
+        *paged_case(gen, R=64, lengths=[4096, 1, 0, 3000, 2500, 4096, 64, 1000]),
+        "long uneven rows (R=64, up to 4096 tokens)"))
     flash_main = flash_case(gen)
     errs["flash_attention"] = check_flash(*flash_main, "main path shape (Sq=Sk=192)")
     for kw, name in ((dict(window=64), "window 64"), (dict(Sq=203, Sk=203), "ragged Sq=Sk=203"),
                      (dict(Sq=64, Sk=192, q_start=128), "q_start 128"),
-                     (dict(B=2, Sq=100, Sk=150, causal=False), "non-causal cross Sq != Sk")):
+                     (dict(B=2, Sq=100, Sk=150, causal=False), "non-causal cross Sq != Sk"),
+                     (dict(Sq=100, Sk=100, H=4, K=2, D=16, window=48), "head_dim 16, window 48"),
+                     (dict(B=2, Sq=200, Sk=200, H=16, K=4, D=128), "head_dim 128")):
         errs["flash_attention"] = max(errs["flash_attention"], check_flash(*flash_case(gen, **kw), name))
 
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB > 50 MB L2
@@ -330,6 +388,17 @@ def main() -> None:
     dmask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
     dq = q[:, :, None, :]
     dense_sdpa_ms = time_ms(lambda: sdpa(dq, dk, dv, attn_mask=dmask, enable_gqa=True), flush=flush)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    q, pool_k, _, tables, _, _ = p_args
+    p_plan = paged_launch_plan(q.shape[0], q.shape[1], pool_k.shape[2], q.shape[2], tables.shape[1], n_sm)
+    B_, Sq_, H_, D_ = f_args[0].shape
+    f_plan = flash_launch_plan(B_, Sq_, H_, f_args[1].shape[2], D_, f_args[0].dtype)
+    grids = {"paged_attention": dict(grid=list(p_plan.grid), ctas=int(np.prod(p_plan.grid)),
+                                     threads=128, scratch_bytes=p_plan.scratch_bytes),
+             "flash_attention": dict(grid=list(f_plan.grid), ctas=int(np.prod(f_plan.grid)),
+                                     threads=f_plan.threads, scratch_bytes=0)}
+    for name, g in grids.items():
+        print(f"  {name} launch at the main-path shape: {g}", flush=True)
     work = {"paged_attention": paged_work(p_args, p_win), "flash_attention": flash_work(f_args, f_kw)}
     for name, (nbytes, flops) in work.items():
         b_ms, b_by = bound_ms(nbytes, flops)
@@ -339,6 +408,10 @@ def main() -> None:
               f"{nbytes} bytes, {flops} flops)", flush=True)
     print(f"  paged_attention yardstick: SDPA over the dense gathered cache {dense_sdpa_ms:.4f} ms",
           flush=True)
+    one = torch.zeros(1, device=dev)
+    print(f"  timer floor: one kernel that adds 1 to one element {time_ms(lambda: one.add_(1)):.4f} ms, "
+          f"L2 flushed {time_ms(lambda: one.add_(1), flush=flush):.4f} ms", flush=True)
+    sweep(gen, flush)
     del flush, dk, dv
 
     # 4. the engine at full width
@@ -426,7 +499,7 @@ def main() -> None:
             "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
             "launches": launches[name], "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
+            "library_ms": t["library_ms"], **grids[name],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,14 +4,16 @@
 Counterpart of :func:`repro.kernels.flash_attention.flash_attention_pallas`,
 without its divisibility assert: any ``Sq`` and ``Sk`` work.
 :func:`flash_attention_cuda` launches the kernel for CUDA tensors and takes
-the plain version only for CPU tensors.
+the plain version only for CPU tensors. bf16 runs on the tensor cores
+(head dims 16, 32, 64, 128), f32 on the CUDA cores (any head dim);
+:func:`launch_plan` gives the grid either path launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -19,7 +21,9 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_BQ, _BK = 16, 64  # tile sizes compiled into csrc/flash_attention.cu
+_BQ, _BK = 16, 64  # query rows per warp (bf16) or CTA (f32), keys per tile
+_STAGES = 3  # K/V tiles in the bf16 kernel's shared-memory ring
+TC_HEAD_DIMS = (16, 32, 64, 128)  # head dims the bf16 tensor-core path is compiled for
 
 
 def flash_attention_plain(
@@ -55,11 +59,38 @@ def flash_attention_plain(
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
 
 
+class LaunchPlan(NamedTuple):
+    """How the kernel is launched for one set of static shapes."""
+
+    heads_per_cta: int  # bf16: query heads of one kv-head per CTA, one warp each
+    grid: Tuple[int, int, int]
+    threads: int
+    smem_bytes: int
+
+
+def launch_plan(B: int, Sq: int, H: int, K: int, D: int, dtype: torch.dtype,
+                heads_per_cta: Optional[int] = None) -> LaunchPlan:
+    """bf16: a CTA holds 16 query rows of ``heads_per_cta`` heads that share
+    a kv-head, one warp each, so each K/V tile is staged once for all of
+    them: the most heads, at most 4, that divide H/K. At the llama3.2-1b
+    prefill shape that is 96 CTAs, fewer than the 132 SMs, and still the
+    fastest choice measured (the kernel is bound by latency, not by SMs:
+    PERF.md). ``heads_per_cta`` overrides that choice (``chip_smoke.py``
+    times the others). f32: one CTA of 128 threads per (16 rows,
+    head, batch row)."""
+    nq = -(-Sq // _BQ)
+    if dtype == torch.float32:
+        smem = 4 * (2 * _BQ * D + _BK * (D + 1) + _BK * D + _BQ * _BK + 3 * _BQ)
+        return LaunchPlan(1, (nq, H, B), 128, smem)
+    hp = heads_per_cta or next(c for c in (4, 2, 1) if (H // K) % c == 0)
+    return LaunchPlan(hp, (nq, H // hp, B), 32 * hp, 2 * (D + 8) * (hp * _BQ + 2 * _STAGES * _BK))
+
+
 def _lib():
     fn = _build.library("flash_attention").flash_attention_fwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float] + [
-            ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
@@ -94,9 +125,23 @@ def flash_attention_cuda(
            f"q, k, v must share one dtype of {list(_DTYPE_CODE)}")
     _check(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(), "inputs must be contiguous")
     _check(window is None or window > 0, "window must be positive")
-    smem = 4 * (2 * _BQ * D + _BK * (D + 1) + _BK * D + _BQ * _BK + 3 * _BQ)
-    _check(smem <= 227 * 1024, f"head_dim {D} needs {smem} bytes of shared memory")
+    _check(Sq > 0 and B > 0, "empty q")
+    if q.dtype == torch.bfloat16:
+        _check(D in TC_HEAD_DIMS, f"bf16 head_dim {D} not in {TC_HEAD_DIMS}")
+        _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v)), "q, k, v must be 16-byte aligned")
+    plan = launch_plan(B, Sq, H, K, D, q.dtype)
+    _check(plan.smem_bytes <= 227 * 1024, f"head_dim {D} needs {plan.smem_bytes} bytes of shared memory")
 
+    out = launch(q, k, v, causal, window, q_start, plan)
+    flash_attention_cuda.launches += 1
+    return out
+
+
+def launch(q, k, v, causal, window, q_start, plan: LaunchPlan) -> torch.Tensor:
+    """Allocate the output and launch the kernel with ``plan`` on inputs
+    :func:`flash_attention_cuda` has checked; not counted."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     fn = _lib()
     with torch.cuda.device(q.device):
@@ -104,11 +149,10 @@ def flash_attention_cuda(
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Sq, Sk, H, K, D, int(causal), window or 0, int(q_start),
-            1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype], stream,
+            1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype], plan.heads_per_cta, stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_cuda: launch failed with CUDA error {err}")
-    flash_attention_cuda.launches += 1
     return out
 
 

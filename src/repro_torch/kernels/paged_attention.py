@@ -5,13 +5,20 @@ Counterpart of :func:`repro.kernels.paged_attention.paged_attention_pallas`.
 Both functions here return the *unnormalised* ``(o (B,H,D), m (B,H),
 l (B,H))`` in f32. :func:`paged_attention_cuda` launches the kernel for CUDA
 tensors and takes the plain version only for CPU tensors.
+
+The kernel splits each (sequence, kv-head) over its valid pages. How, is
+mirrored here in plain Python for the CPU tests: :func:`launch_plan` (grid,
+splits and scratch from static shapes), :func:`valid_pages` and
+:func:`page_shares` (which pages a split takes) and :func:`merge_partials`
+(how the splits' partial statistics are merged).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -19,6 +26,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernel is compiled for
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -66,13 +74,105 @@ def paged_attention_plain(
     return o.reshape(B, H, D), m.reshape(B, H), l.reshape(B, H)
 
 
+class LaunchPlan(NamedTuple):
+    """How the kernel is launched for one set of static shapes."""
+
+    n_splits: int  # S: CTAs that share one (sequence, kv-head, head chunk)
+    head_chunk: int  # query heads a CTA keeps in registers (divides H/K)
+    grid: Tuple[int, int, int]  # (S, K * H/K/head_chunk, B)
+    scratch_bytes: int  # f32 partial (o, m, l) of every split; 0 when S == 1
+
+
+_HEAD_CHUNKS = (8, 4, 2, 1)
+# CTAs of the kernel that fit on one SM at once: every instance uses at most
+# 230 registers a thread (ptxas, sm_90a), so at least two CTAs of 128 fit
+CTAS_PER_SM = 2
+
+
+def launch_plan(B: int, H: int, K: int, D: int, R: int, n_sm: int,
+                n_splits: Optional[int] = None) -> LaunchPlan:
+    """Grid and scratch from static shapes only: batch rows, heads, head
+    dim, table width and the card's SM count, never the lengths (they live
+    on the device; reading them would be a host sync). S is the most splits
+    whose grid still runs in one wave of ``CTAS_PER_SM`` CTAs per SM (a
+    second wave would put a whole CTA's latency on the critical path), at
+    least 1 and at most one per table entry. ``n_splits`` overrides S
+    (``chip_smoke.py`` times other choices)."""
+    G = H // K
+    chunk = next(c for c in _HEAD_CHUNKS if G % c == 0)
+    programs = B * K * (G // chunk)
+    S = n_splits or max(1, min(R, CTAS_PER_SM * n_sm // programs))
+    scratch = 0 if S == 1 else S * B * H * (D + 2) * 4
+    return LaunchPlan(S, chunk, (S, K * (G // chunk), B), scratch)
+
+
+def valid_pages(table: Sequence[int], pos: Sequence[int], length: int, *, T: int, P: int,
+                window: Optional[int] = None, page_offset: int = 0) -> List[int]:
+    """Table entries (in table order) that a row's CTAs read, as the kernel
+    finds them: page id in ``[0, P)`` after ``page_offset``, and
+    ``[page_pos, page_pos + T)`` meets ``[lo, length)``."""
+    lo = max(0, length - window) if window else 0
+    return [r for r, (pid, base) in enumerate(zip(table, pos))
+            if 0 <= pid - page_offset < P and base + T > lo and base < length]
+
+
+def page_shares(n_valid: int, n_splits: int) -> List[Tuple[int, int]]:
+    """The contiguous share ``[start, end)`` of a row's valid pages that each
+    split takes: ``[s*n/S, (s+1)*n/S)``; a share may be empty."""
+    return [(s * n_valid // n_splits, (s + 1) * n_valid // n_splits) for s in range(n_splits)]
+
+
+def split_tables(tables: torch.Tensor, page_pos: torch.Tensor, lengths: torch.Tensor, *,
+                 T: int, P: int, n_splits: int, window: Optional[int] = None,
+                 page_offset: int = 0) -> torch.Tensor:
+    """(S, B, R) tables: split s keeps its share of each row's valid pages
+    and has the out-of-range id ``page_offset + P`` everywhere else, so that
+    the paged function over it computes that split's partial statistics."""
+    B, R = tables.shape
+    out = torch.full((n_splits, B, R), page_offset + P, dtype=tables.dtype)
+    for b in range(B):
+        rows = valid_pages(tables[b].tolist(), page_pos[b].tolist(), int(lengths[b]), T=T, P=P,
+                           window=window, page_offset=page_offset)
+        for s, (lo, hi) in enumerate(page_shares(len(rows), n_splits)):
+            for r in rows[lo:hi]:
+                out[s, b, r] = tables[b, r]
+    return out
+
+
+def merge_partials(o_parts: torch.Tensor, m_parts: torch.Tensor, l_parts: torch.Tensor) -> Stats:
+    """Merge S partial ``(o (S,...,D), m (S,...), l (S,...))`` into one
+    unnormalised ``(o, m, l)``: ``online_softmax_combine`` without its final
+    division. Empty partials (m = -1e30, l = 0) drop out; all-empty stays
+    ``(0, -1e30, 0)``."""
+    m = m_parts.amax(dim=0)
+    a = torch.exp(m_parts - m[None])
+    return (o_parts * a[..., None]).sum(dim=0), m, (l_parts * a).sum(dim=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+_tickets: Dict[int, torch.Tensor] = {}
+
+
+def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
+    """Per-device zeroed int32 tickets, kept zeroed by the kernel and grown
+    (never shrunk) when a launch needs more; allocated once per size."""
+    buf = _tickets.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[device.index] = buf
+    return buf
+
+
 def _lib():
     lib = _build.library("paged_attention")
     fn = lib.paged_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float] + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_float] + [
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -107,7 +207,7 @@ def paged_attention_cuda(
     P, T, K, Dk = pool_k.shape
     R = tables.shape[1] if tables.dim() == 2 else -1
     _check(Dk == D and H % K == 0, f"q {tuple(q.shape)} does not fit pool {tuple(pool_k.shape)}")
-    _check(tables.shape == (B, R) and page_pos.shape == (B, R) and lengths.shape == (B,),
+    _check(tables.shape == (B, R) and page_pos.shape == (B, R) and lengths.shape == (B,) and R > 0,
            "tables/page_pos must be (B, R) and lengths (B,)")
     _check(q.dtype in _DTYPE_CODE and pool_k.dtype in _DTYPE_CODE and pool_v.dtype == pool_k.dtype,
            f"unsupported dtypes q={q.dtype} pool={pool_k.dtype}/{pool_v.dtype}")
@@ -115,25 +215,46 @@ def paged_attention_cuda(
            "tables, page_pos and lengths must be int32")
     _check(all(t.is_contiguous() for t in tensors), "inputs must be contiguous")
     _check(window is None or window > 0, "window must be positive")
-    G = H // K
-    smem = 4 * (2 * G * D + T * (D + 1) + T * D + G * T + 3 * G)
-    _check(smem <= 227 * 1024, f"T={T}, D={D}, G={G} need {smem} bytes of shared memory")
+    _check(D in HEAD_DIMS, f"head_dim {D} not in {HEAD_DIMS}")
+    _check(pool_k.data_ptr() % 16 == 0 and pool_v.data_ptr() % 16 == 0,
+           "pools must be 16-byte aligned")
+    plan = launch_plan(B, H, K, D, R, _sm_count(q.device.index))
+    smem = 8 * R + 4 * 4 * plan.head_chunk * (D + 2)
+    _check(smem <= 227 * 1024, f"R={R}, D={D} need {smem} bytes of shared memory")
+    out = launch(q, pool_k, pool_v, tables, page_pos, lengths, window, page_offset, plan)
+    paged_attention_cuda.launches += 1
+    return out
 
+
+def launch(q, pool_k, pool_v, tables, page_pos, lengths, window, page_offset,
+           plan: LaunchPlan) -> Stats:
+    """Allocate the outputs and scratch and launch the kernel with ``plan``
+    on inputs :func:`paged_attention_cuda` has checked; not counted."""
+    B, H, D = q.shape
+    P, T, K, _ = pool_k.shape
+    R = tables.shape[1]
     o = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    S = plan.n_splits
+    if S > 1:  # one f32 buffer: o_part (S,B,H,D), then m_part and l_part (S,B,H)
+        part = torch.empty(plan.scratch_bytes // 4, dtype=torch.float32, device=q.device)
+        base, n = part.data_ptr(), S * B * H
+        scratch = (base, base + 4 * n * D, base + 4 * n * (D + 1),
+                   _ticket_buffer(q.device, plan.grid[1] * B).data_ptr())
+    else:
+        scratch = (None, None, None, None)
     fn = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tables.data_ptr(),
             page_pos.data_ptr(), lengths.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
-            B, H, K, D, T, R, P, window or 0, int(page_offset), 1.0 / math.sqrt(D),
-            _DTYPE_CODE[q.dtype], _DTYPE_CODE[pool_k.dtype], stream,
+            *scratch, B, H, K, D, T, R, P, window or 0, int(page_offset), 1.0 / math.sqrt(D),
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[pool_k.dtype], S, plan.head_chunk, stream,
         )
     if err != 0:
         raise RuntimeError(f"paged_attention_cuda: launch failed with CUDA error {err}")
-    paged_attention_cuda.launches += 1
     return o, m, l
 
 

@@ -14,7 +14,8 @@ wall time and once under ``torch.profiler``, and prints:
   and its idle share over the traced run;
 * per decode step: PyTorch ops dispatched, host time, and device time;
 * the ops with the most host (self CPU) time and the kernels with the most
-  device time.
+  device time, and the port's own kernels' launches and device time per
+  launch.
 
 ``--smoke --device cpu`` rehearses the script on the CPU with the smoke
 config; it then reports host numbers only, under the CPU's name.
@@ -38,6 +39,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
+from repro_torch.kernels._build import short_name
 from repro_torch.models.lm import build_model
 from repro_torch.serving.engine import Request, ServingEngine
 
@@ -46,6 +48,9 @@ def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
+
+# the hand-written kernels of csrc/, as their names appear in the trace
+PORT_KERNELS = ("paged_split_kernel", "flash_fwd_tc_kernel", "flash_fwd_f32_kernel")
 
 # The serving cell, shared with chip_smoke.py: 8 slots over 512 pages, and
 # a burst of requests that share one system prompt.
@@ -206,6 +211,9 @@ def main(argv=None):
     wall_us = traced["wall_s"] * 1e6
     ka = prof.key_averages()
     dev_attr = "self_device_time_total"
+    port_kernels = {short_name(e.key):
+                    {"launches": e.count, "device_us_per_launch": getattr(e, dev_attr) / e.count}
+                    for e in ka if any(k in e.key for k in PORT_KERNELS) and e.count}
     summary = {
         "device": kind, "arch": cfg.arch_id, "smoke": args.smoke, "slots": SLOTS,
         "requests": len(requests), "tokens": plain["tokens"],
@@ -219,7 +227,8 @@ def main(argv=None):
                    "device_idle_share": None if busy_us is None else 1.0 - busy_us / wall_us,
                    "decode_device_busy_ms_per_step": (None if decode_busy_us is None
                                                       else decode_busy_us / 1e3 / n_steps),
-                   "per_decode_step": per_step},
+                   "per_decode_step": per_step,
+                   "port_kernels": port_kernels},
     }
     host_table = ka.table(sort_by="self_cpu_time_total", row_limit=25)
     dev_table = ka.table(sort_by=dev_attr, row_limit=15) if dev.type == "cuda" else ""

@@ -33,20 +33,28 @@ def close(got, want, tol):
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol)
 
 
-# (B, S, T, H, K, D, window, dtype)
+# (B, S, T, H, K, D, window, dtype[, lengths]): lengths are random in [1, S]
+# unless given; the last row is always inactive
 PAGED_CASES = [
     (2, 64, 8, 4, 4, 64, None, "float32"),
     (2, 64, 8, 4, 1, 128, None, "bfloat16"),
     (2, 128, 16, 4, 4, 32, 48, "float32"),
     (1, 256, 32, 2, 2, 64, 100, "bfloat16"),
     (8, 224, 64, 32, 8, 64, None, "bfloat16"),  # llama3.2-1b serving shape
-    (3, 256, 64, 16, 2, 128, None, "float32"),  # > 48 KB of shared memory
+    (3, 256, 64, 16, 2, 128, None, "float32"),  # 8 heads per kv-head, 512-byte rows
+    (8, 4096, 64, 32, 8, 64, None, "bfloat16"),  # 65 pages a row, many per split
+    (5, 4096, 64, 32, 8, 64, None, "bfloat16", (4096, 1, 65, 3000, 0)),  # uneven rows
+    (4, 4096, 64, 32, 8, 64, 1000, "bfloat16"),  # long rows, window: early pages skipped
+    (2, 1024, 64, 16, 2, 128, None, "bfloat16"),  # 8 heads per kv-head, head_dim 128
+    (3, 512, 16, 32, 2, 64, None, "float32"),  # 16 heads per kv-head: two chunks of 8
+    (3, 300, 16, 4, 2, 16, None, "bfloat16"),  # head_dim 16: 2 lanes a row
+    (2, 300, 16, 8, 2, 128, 77, "float32"),  # f32 head_dim 128: a whole warp a row
 ]
 
 
 @pytest.mark.parametrize("case", PAGED_CASES)
 def test_paged_cuda_matches_plain(dev, case):
-    B, S, T, H, K, D, window, dtype = case
+    B, S, T, H, K, D, window, dtype = case[:8]
     rng = np.random.default_rng(3)
     R = S // T + 1
     P = B * R + 2
@@ -57,6 +65,8 @@ def test_paged_cuda_matches_plain(dev, case):
     tables[-1] = P  # an inactive row: all sentinel, length 0
     page_pos = np.repeat((np.arange(R, dtype=np.int32) * T)[None], B, axis=0)
     lengths = rng.integers(1, S + 1, size=B).astype(np.int32)
+    if len(case) > 8:
+        lengths[:] = case[8]
     lengths[-1] = 0
     args = [q, pool_k, pool_v] + [torch.from_numpy(a).to(dev) for a in (tables, page_pos, lengths)]
     n = paged_attention_cuda.launches
@@ -81,6 +91,12 @@ FLASH_CASES = [
     (1, 192, 192, 32, 8, 64, True, None, 0, "bfloat16"),  # llama3.2-1b prefill shape
     (2, 100, 100, 4, 2, 16, True, 48, 0, "float32"),  # ragged, smoke head_dim
     (1, 64, 192, 4, 1, 32, True, None, 128, "float32"),  # q_start offset
+    (2, 100, 100, 4, 2, 16, True, 48, 0, "bfloat16"),  # tensor cores: head_dim 16, ragged
+    (1, 64, 192, 4, 1, 32, True, None, 128, "bfloat16"),  # head_dim 32, q_start 128
+    (1, 203, 203, 32, 8, 64, True, None, 0, "bfloat16"),  # ragged 203-token prompt
+    (2, 100, 150, 8, 2, 64, False, None, 0, "bfloat16"),  # non-causal Sq != Sk
+    (2, 200, 200, 16, 4, 128, True, None, 0, "bfloat16"),  # 4 heads a CTA, > 48 KB smem
+    (1, 256, 256, 8, 8, 128, True, 100, 0, "bfloat16"),  # window, one head per kv-head
 ]
 
 

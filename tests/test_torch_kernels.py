@@ -20,6 +20,7 @@ from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
 from repro.kernels.paged_attention import paged_attention_pallas  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain  # noqa: E402
+from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain  # noqa: E402
 
 TOL = {"flash": {"float32": 2e-5, "bfloat16": 2e-2}, "paged": {"float32": 3e-5, "bfloat16": 3e-2}}
@@ -164,6 +165,134 @@ def test_online_softmax_combine_matches_jax():
     want = jref.online_softmax_combine(jnp.asarray(o), jnp.asarray(m), jnp.asarray(l))
     got = ref.online_softmax_combine(torch.from_numpy(o), torch.from_numpy(m), torch.from_numpy(l))
     close(got, want, 1e-6)
+
+
+# ------------------------- split-K (flash-decoding) -------------------------
+def split_case(name):
+    """Inputs for the split-K contract: (q, pool_k, pool_v, tables, page_pos,
+    lengths, window, page_offset, n_sm). ``n_sm`` is picked so that the
+    launch plan gives S = 4 (3 for the ring)."""
+    rng = np.random.default_rng(21)
+    T, H, K, D = 8, 8, 2, 32
+    if name == "serving":  # engine layout: own pages then sentinels; an inactive row
+        B, R, P, off = 4, 6, 20, 0
+        lengths = np.array([33, 0, 12, 47], np.int32)
+        tables = np.full((B, R), P, np.int32)
+        perm, used = rng.permutation(P), 0
+        for b, n in enumerate(lengths):
+            k = 0 if n == 0 else n // T + 1
+            tables[b, :k] = perm[used:used + k]
+            used += k
+        page_pos = np.repeat((np.arange(R, dtype=np.int32) * T)[None], B, axis=0)
+        window, n_sm = None, 16
+    elif name == "ring":  # a sliding-window ring: page_pos not increasing
+        B, R, P, off, T = 2, 3, 6, 0, 4
+        tables = np.arange(P, dtype=np.int32).reshape(B, R)
+        page_pos = np.array([[12, 4, 8], [12, 16, 8]], np.int32)
+        lengths = np.array([14, 19], np.int32)
+        window, n_sm = 8, 12
+    elif name == "window":  # 2 of 8 pages in the window: two of four shares empty
+        B, R, P, off = 2, 8, 16, 0
+        tables = rng.permutation(P)[: B * R].reshape(B, R).astype(np.int32)
+        page_pos = np.repeat((np.arange(R, dtype=np.int32) * T)[None], B, axis=0)
+        lengths = np.array([60, 9], np.int32)
+        window, n_sm = 10, 8
+    elif name == "offset":  # a pool shard: ids outside [offset, offset + P) are skipped
+        B, R, P, off = 3, 5, 12, 7
+        tables = (rng.permutation(2 * P)[: B * R].reshape(B, R) + 1).astype(np.int32)
+        page_pos = np.repeat((np.arange(R, dtype=np.int32) * T)[None], B, axis=0)
+        lengths = np.array([40, 3, 25], np.int32)
+        window, n_sm = None, 12
+    pool_k = rng.standard_normal((P, T, K, D), dtype=np.float32)
+    pool_v = rng.standard_normal((P, T, K, D), dtype=np.float32)
+    q = rng.standard_normal((B, H, D), dtype=np.float32)
+    return q, pool_k, pool_v, tables, page_pos, lengths, window, off, n_sm
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["serving", "ring", "window", "offset"])
+def test_paged_split_shares_merge_to_pallas(name, dtype):
+    """The kernel's split-K contract on the CPU: cut each row's valid pages
+    into the shares the kernel's CTAs take, run the plain version on each
+    share, merge with the kernel's merge, and hold the result (o, m, l
+    unnormalised) against the Pallas kernel in interpret mode."""
+    q, pool_k, pool_v, tables, page_pos, lengths, window, off, n_sm = split_case(name)
+    B, H, D = q.shape
+    P, T, K, _ = pool_k.shape
+    plan = tpa.launch_plan(B, H, K, D, tables.shape[1], n_sm)
+    assert plan.n_splits == (3 if name == "ring" else 4)
+    jq, tq = both(q, dtype)
+    jk, tk = both(pool_k, dtype)
+    jv, tv = both(pool_v, dtype)
+    tt, tp, tl = (torch.from_numpy(a) for a in (tables, page_pos, lengths))
+    per_split = tpa.split_tables(tt, tp, tl, T=T, P=P, n_splits=plan.n_splits, window=window,
+                                 page_offset=off)
+    parts = [paged_attention_plain(tq, tk, tv, t, tp, tl, window=window, page_offset=off)
+             for t in per_split]
+    o, m, l = tpa.merge_partials(*(torch.stack(x) for x in zip(*parts)))
+    want = paged_attention_pallas(jq, jk, jv, jnp.asarray(tables), jnp.asarray(page_pos),
+                                  jnp.asarray(lengths), window=window, page_offset=off,
+                                  interpret=True)
+    for g, w in zip((o, m, l), want):
+        close(g, w, TOL["paged"][dtype])
+    # every valid page is in exactly one share; no share holds an invalid one
+    for b in range(B):
+        valid = tpa.valid_pages(tables[b], page_pos[b], int(lengths[b]), T=T, P=P, window=window,
+                                page_offset=off)
+        taken = sorted(r for t in per_split for r in np.flatnonzero(t[b].numpy() != off + P))
+        assert taken == valid
+    dead = lengths == 0
+    if dead.any():  # the all-sentinel row: o=0, l=0, m=-1e30 after the merge
+        assert (o[dead] == 0).all() and (l[dead] == 0).all() and (m[dead] == NEG_INF).all()
+
+
+@pytest.mark.parametrize("n_valid,n_splits", [(4, 5), (13, 5), (0, 3), (2, 4), (7, 1)])
+def test_paged_page_shares_cover_each_valid_page_once(n_valid, n_splits):
+    """Shares are contiguous, in order, cover [0, n) exactly, and differ in
+    size by at most one page (rows with fewer pages than splits leave some
+    shares empty)."""
+    shares = tpa.page_shares(n_valid, n_splits)
+    assert len(shares) == n_splits and shares[0][0] == 0 and shares[-1][1] == n_valid
+    assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
+    sizes = [e - s for s, e in shares]
+    assert min(sizes) >= 0 and max(sizes) - min(sizes) <= 1
+
+
+def test_paged_launch_plan_is_static():
+    """The grid and scratch come from static shapes only (never lengths,
+    which would need a host sync): at the serving shape (8 slots, 8 kv-heads
+    of 4 query heads, 32 table entries, 132 SMs) the grid is the largest
+    that runs in one wave of two CTAs per SM, and lengths are not even an
+    input of the plan."""
+    import inspect
+
+    assert "lengths" not in inspect.signature(tpa.launch_plan).parameters
+    plan = tpa.launch_plan(8, 32, 8, 64, 32, 132)
+    S, ys, B = plan.grid
+    assert (plan.n_splits, plan.head_chunk) == (4, 4)
+    assert S * ys * B <= 2 * 132 < (S + 1) * ys * B
+    assert plan.scratch_bytes == 4 * 8 * 32 * 66 * 4
+    # one table entry per split at most; more heads per kv-head go in chunks of 8
+    assert tpa.launch_plan(1, 1, 1, 64, 3, 132).n_splits == 3
+    assert tpa.launch_plan(64, 32, 8, 64, 32, 132).n_splits == 1  # more rows than a wave
+    assert tpa.launch_plan(2, 64, 4, 128, 64, 132).head_chunk == 8
+    assert tpa.launch_plan(2, 96, 8, 128, 64, 132).head_chunk == 4
+    # the serving engine's shape at any lengths gives the same plan
+    assert tpa.launch_plan(8, 32, 8, 64, 32, 132) == plan
+
+
+def test_flash_launch_plan_packs_the_heads_of_a_kv_head():
+    """bf16 packs up to 4 query heads of one kv-head into a CTA, a warp each
+    (llama3.2-1b prefill: 96 CTAs of 4 heads); f32 keeps one CTA per (16
+    rows, head)."""
+    from repro_torch.kernels.flash_attention import launch_plan
+
+    bf = launch_plan(1, 192, 32, 8, 64, torch.bfloat16)
+    assert bf.heads_per_cta == 4 and bf.grid == (12, 8, 1) and bf.threads == 128
+    assert launch_plan(2, 100, 4, 2, 16, torch.bfloat16).heads_per_cta == 2
+    assert launch_plan(1, 16, 8, 8, 64, torch.bfloat16).heads_per_cta == 1
+    f32 = launch_plan(1, 192, 32, 8, 64, torch.float32)
+    assert f32.grid == (12, 32, 1) and f32.threads == 128
 
 
 def test_not_ported_branches_raise():
