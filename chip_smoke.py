@@ -24,7 +24,20 @@ JAX package), and it:
    counting every kernel launch; then compares the logits of one of the
    engine's own batched decode steps, captured mid-run, and of one prefill
    and one decode step with the ``impl="ref"`` oracles;
-5. prints a JSON line with each kernel's launches, error, times and grid at
+5. blob mode, on one ``Cluster`` with one ``BlobKVStore`` of 512 pages of
+   2 MiB (one llama3_2-1b KV page: 2 x 16 layers x 64 tokens x 8 kv heads x
+   64 x 2 bytes): engine A (its own client and device pool) serves the same
+   16 requests and must decode the tokens of step 4; engine B (another
+   client and device pool on the same store) serves 16 new tails behind the
+   same system prompt with 80 new tokens each, must take the system
+   prompt's pages from the cluster directory (fetching A's published
+   pages) and publish each row's fourth page as it fills, and must decode
+   the tokens of a host-allocator engine serving the same requests. It
+   prints each engine's tok/s and TTFT, the pages published and fetched,
+   the store's, clients' and cluster's counters, the host time of each
+   client call and the time of one page's device-to-host and host-to-device
+   copies;
+6. prints a JSON line with each kernel's launches, error, times and grid at
    the main-path shape, and, as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero before the last line is printed.
@@ -32,6 +45,7 @@ Any failure exits nonzero before the last line is printed.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -301,6 +315,204 @@ def capture_decode(engine, step: int) -> dict:
 
 
 # ------------------------------ main ------------------------------
+def record_logits(engine) -> dict:
+    """Wrap ``engine._decode`` so that each live row's logits of every
+    batched step stay on the card, keyed by (request id, index of the token
+    they choose); read only when two runs' tokens differ."""
+    rec, decode = {}, engine._decode
+
+    def run(*args):
+        logits = decode(*args)
+        for i, st in enumerate(engine._slots):
+            if st is not None:
+                rec[(st["req"].request_id, len(st["generated"]))] = logits[i]
+        return logits
+
+    engine._decode = run
+    return rec
+
+
+def check_same_tokens(what, got, want, rec_got, rec_want, rids) -> None:
+    """Fail at the first request whose greedy tokens differ, with the step
+    and the logits there: the two runs' largest logit difference and each
+    run's margin between the two tokens chosen."""
+    for rid in rids:
+        a, b = got[rid].tokens, want[rid].tokens
+        if a == b:
+            continue
+        k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        gap = "no decode logits (the prefill's token, or a length mismatch)"
+        if (rid, k) in rec_got and (rid, k) in rec_want and k < min(len(a), len(b)):
+            la, lb = rec_got[(rid, k)].float(), rec_want[(rid, k)].float()
+            gap = (f"max |logits difference| {(la - lb).abs().max().item():.4e}; margin "
+                   f"{(la[a[k]] - la[b[k]]).item():.4e} in {what}, {(lb[b[k]] - lb[a[k]]).item():.4e} "
+                   f"in its reference")
+        fail(f"{what}: request {rid} diverges at token {k} ({a[k:k + 4]} vs {b[k:k + 4]}): {gap}")
+
+
+def timed_calls(client, names) -> dict:
+    """Wrap ``client``'s methods ``names`` to keep each call's host time (and,
+    for ``publish_prompt``/``fetch_pages``, the versions written or read)."""
+    calls = {name: [] for name in names}
+    for name in names:
+        fn = getattr(client, name)
+
+        def run(*args, _fn=fn, _name=name):
+            t0 = time.perf_counter()
+            out = _fn(*args)
+            seconds = time.perf_counter() - t0
+            if _name == "fetch_pages":
+                calls[_name].append((seconds, [a.version for a in args[0]]))
+            elif _name == "publish_prompt":
+                calls[_name].append((seconds, list(out)))
+            else:
+                calls[_name].append((seconds, None))
+            return out
+
+        setattr(client, name, run)
+    return calls
+
+
+def traffic(cluster) -> dict:
+    """The cluster's traffic counters: bytes written to and read from the
+    data providers, RPCs, rounds and shared-cache hits."""
+    st = cluster.stats
+    return {"bytes_written": sum(st.write_bytes_snapshot().values()),
+            "bytes_read": sum(st.read_bytes_snapshot().values()),
+            **{k: getattr(st, k) for k in ("rpcs", "aggregated_rpcs", "data_rounds", "metadata_rounds",
+                                           "cache_hits", "cache_misses")}}
+
+
+def host_ms(fn, dev, iters: int = 20) -> tuple:
+    """Median and least host time of ``fn`` (ending in a synchronisation)."""
+    fn()
+    samples = []
+    for _ in range(iters):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples), min(samples)
+
+
+def serve_burst(engine, requests) -> tuple:
+    """Submit ``requests`` at once and drain: completions, wall seconds."""
+    t0 = time.perf_counter()
+    for r in requests:
+        engine.submit(r)
+    done = engine.run_until_drained()
+    torch.cuda.synchronize(engine.device)
+    return {r.request_id: done[r.request_id] for r in requests}, time.perf_counter() - t0
+
+
+def engine_line(name, done, wall) -> str:
+    n_tokens = sum(len(c.tokens) for c in done.values())
+    ttft = sorted(c.ttft_s for c in done.values())
+    return (f"{name}: {len(done)} requests, {n_tokens} tokens in {wall:.3f} s = {n_tokens / wall:.1f} tok/s; "
+            f"TTFT p50 {statistics.median(ttft) * 1e3:.1f} ms, max {ttft[-1] * 1e3:.1f} ms")
+
+
+BLOB_CALLS = ("publish_prompt", "fetch_pages", "publish_page_async", "drain_publishes")
+
+
+def blob_phase(cfg, host, host_done, host_rec, card, kernels) -> dict:
+    """Step 5: blob mode at full width. ``host`` is step 4's engine (its
+    completions ``host_done``, its logits ``host_rec``); it also serves B's
+    requests as B's reference, outside the counted run. Returns the kernel
+    launches of engines A and B."""
+    from repro_torch.core import Cluster
+    from repro_torch.launch.profile_serve import PAGES, SLOTS, cell_requests, warm_up
+    from repro_torch.serving import BlobKVClient, BlobKVStore, ServingEngine
+    from repro_torch.serving.engine import load_page, pack_page
+
+    dev = host.device
+    bursts = cell_requests(cfg, bursts=2)
+    reqs_a = bursts[:16]
+    reqs_b = [dataclasses.replace(r, max_new_tokens=80) for r in bursts[16:]]
+    cluster = Cluster(n_data_providers=2, n_metadata_providers=2)
+    try:
+        store = BlobKVStore.for_kv(cluster, n_pages=PAGES, page_tokens=cfg.kv_page_tokens,
+                                   n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+                                   head_dim=cfg.head_dim, dtype=np.uint16)  # bf16 pages
+        check(store.page_size == 2 ** 21, f"blob page of {store.page_size} bytes, expected 2 MiB")
+        engines, calls, recs = {}, {}, {}
+        for name in ("A", "B"):
+            client = BlobKVClient(store)
+            engines[name] = ServingEngine(cfg, host.params, max_slots=SLOTS, device=dev, kv_client=client)
+            check(engines[name].pool_k.dtype == torch.bfloat16, "blob engine pool is not bf16")
+            recs[name] = record_logits(engines[name])
+        warm_up(engines["A"])  # the blob path's first calls (thread pools) too
+        for name in ("A", "B"):
+            calls[name] = timed_calls(engines[name].kv, BLOB_CALLS)
+        store0, traffic0 = dict(store.stats), traffic(cluster)
+        client0 = {name: dict(e.kv.stats) for name, e in engines.items()}
+        for k in kernels:
+            k.launches = 0
+        done_a, wall_a = serve_burst(engines["A"], reqs_a)
+        hits_a = store.stats["prefix_hits"]
+        done_b, wall_b = serve_burst(engines["B"], reqs_b)
+        launches = {k.__name__.removesuffix("_cuda"): k.launches for k in kernels}
+        check(all(n > 0 for n in launches.values()), f"a kernel never ran in blob mode: {launches}")
+
+        # B's reference: the host-allocator engine on the same requests
+        done_ref, _ = serve_burst(host, reqs_b)
+        check_same_tokens("blob engine A", done_a, host_done, recs["A"], host_rec, range(16))
+        check_same_tokens("blob engine B", done_b, done_ref, recs["B"], host_rec, [r.request_id for r in reqs_b])
+        for c in list(done_a.values()) + list(done_b.values()):
+            check(all(0 <= t < cfg.vocab_size for t in c.tokens), f"request {c.request_id}: bad tokens")
+        skipped = sorted({c.prefill_skipped_tokens for c in done_b.values()})
+        check(skipped == [128], f"engine B skipped {skipped} prompt tokens, expected 128 for each request")
+        check(store.stats["prefix_hits"] - hits_a >= 32, f"engine B took too few directory pages: {store.stats}")
+        published_a = {v for _, versions in calls["A"]["publish_prompt"] for v in versions}
+        fetched_b = [versions for _, versions in calls["B"]["fetch_pages"]]
+        check(any(len(v) == 2 and set(v) <= published_a for v in fetched_b),
+              f"engine B never fetched two of A's published pages: {fetched_b}")
+        check(len(calls["B"]["publish_page_async"]) == 16 and not calls["A"]["publish_page_async"],
+              f"decode-page publishes A {len(calls['A']['publish_page_async'])}, "
+              f"B {len(calls['B']['publish_page_async'])}, expected 0 and 16")
+
+        print(f"blob mode on {card}: store of {store.n_pages} pages of {store.page_size} bytes", flush=True)
+        for name, done, wall in (("A", done_a, wall_a), ("B", done_b, wall_b)):
+            c, kv = calls[name], engines[name].kv
+            stats = {k: kv.stats[k] - client0[name][k] for k in kv.stats}
+            print(f"  {engine_line('engine ' + name, done, wall)}; pages published {stats['published_pages']} "
+                  f"({len(c['publish_page_async'])} of them decode pages), fetched "
+                  f"{sum(len(v) for _, v in c['fetch_pages'])} in {len(c['fetch_pages'])} calls; "
+                  f"client stats {stats}", flush=True)
+            for call in BLOB_CALLS:
+                ms = [sec * 1e3 for sec, _ in c[call]]
+                print(f"    host time per {call}: {len(ms)} calls" + (
+                      f", median {statistics.median(ms):.3f} ms, max {max(ms):.3f} ms, "
+                      f"total {sum(ms):.1f} ms" if ms else ""), flush=True)
+        store_delta = {k: store.stats[k] - store0[k] for k in store0}
+        moved = {k: v - traffic0[k] for k, v in traffic(cluster).items()}
+        print(f"  store stats over A and B {store_delta}; cluster traffic {moved}", flush=True)
+
+        # one page across the host boundary, on engine B's pools
+        b = engines["B"]
+        sid = next(iter(b._resident))
+        page = pack_page(b.pool_k[:, sid], b.pool_v[:, sid], store.page_size)
+        raw = torch.from_numpy(page).to(dev)
+        host_buf = np.empty_like(page)
+        times = {
+            "pack_page (device gather + device-to-host copy into a fresh buffer)":
+                host_ms(lambda: pack_page(b.pool_k[:, sid], b.pool_v[:, sid], store.page_size), dev),
+            "device-to-host copy alone": host_ms(lambda: torch.from_numpy(host_buf).copy_(raw), dev),
+            "load_page (host-to-device copy + scatter into both pools)":
+                host_ms(lambda: load_page(b.pool_k, b.pool_v, sid, page), dev),
+            "host-to-device copy alone": host_ms(lambda: raw.copy_(torch.from_numpy(page)), dev),
+        }
+        check(np.array_equal(pack_page(b.pool_k[:, sid], b.pool_v[:, sid], store.page_size), page),
+              "a page does not survive pack_page -> load_page")
+        for what, (med, least) in times.items():
+            print(f"  one 2 MiB page, {what}: median {med:.3f} ms, least {least:.3f} ms (host clock, "
+                  f"synchronised)", flush=True)
+        return launches
+    finally:
+        cluster.close()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -430,6 +642,7 @@ def main() -> None:
 
     requests = cell_requests(cfg)
     captured = capture_decode(engine, CAPTURE_STEP)
+    host_rec = record_logits(engine)
     stats0 = dict(engine.alloc.stats)
     torch.cuda.reset_peak_memory_stats()
     flash_attention_cuda.launches = 0
@@ -487,7 +700,11 @@ def main() -> None:
     print(f"decode logits vs ref: max abs err / max |ref| = {rel_d:.3e} (tol {LOGITS_TOL})", flush=True)
     check(bool(torch.isfinite(dk_logits).all()) and rel_d <= LOGITS_TOL, "decode logits disagree with ref")
 
-    # 5. results
+    # 5. blob mode
+    launches_blob = blob_phase(cfg, engine, done, host_rec, card, (flash_attention_cuda, paged_attention_cuda))
+    print(f"blob-mode launches {launches_blob}", flush=True)
+
+    # 6. results
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:79"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -499,7 +716,7 @@ def main() -> None:
             "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
             "launches": launches[name], "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], **grids[name],
+            "library_ms": t["library_ms"], "launches_blob": launches_blob[name], **grids[name],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

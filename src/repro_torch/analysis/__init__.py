@@ -1,0 +1,19 @@
+"""The lock hierarchy and the runtime lock watchdog of the storage core.
+
+Copies of :mod:`repro.analysis.lock_order` (the declared global lock
+hierarchy) and :mod:`repro.analysis.lockwatch` (the opt-in runtime watchdog,
+``REPRO_LOCKWATCH=1``), which :mod:`repro_torch.core` imports at module
+load. The static lint and the schedule explorer are not copied: the repo's
+``tools/lint_concurrency.py`` lints this package against the same hierarchy.
+
+This package must stay import-light: nothing here may import
+``repro_torch.core``.
+"""
+
+from repro_torch.analysis import lock_order  # noqa: F401
+from repro_torch.analysis.lockwatch import (  # noqa: F401
+    enabled,
+    make_condition,
+    make_lock,
+    watch,
+)

@@ -1,0 +1,100 @@
+"""Lock-free versioned blob storage: the storage core that blob-mode serving
+stands on, copied from :mod:`repro.core` (only the package name in imports
+differs; ``tests/test_torch_blob_kv.py`` holds each copy to its source).
+
+Public API: :class:`Cluster` (shared plane: version manager, metadata DHT,
+data providers, replica balancer, shared cache tier) → :class:`Session`
+(per-client state) → :class:`BlobHandle` (fine-grain ALLOC/READ/WRITE ops,
+:class:`Snapshot` pinning, :class:`VersionWatch` subscriptions), and the
+cluster-wide :class:`PageDirectory` of published prefix pages.
+
+Not copied, being on no serving path: ``federation`` and ``faults`` (several
+nodes on one substrate, the chaos harness), ``blob`` (the deprecated
+``BlobStore`` facade) and ``flat_view``.
+"""
+
+from repro_torch.core.cluster import (
+    BlobHandle,
+    Cluster,
+    DEFAULT_CACHE_BYTES,
+    DEFAULT_SHARED_CACHE_BYTES,
+    ReadResult,
+    RetryPolicy,
+    Session,
+    Snapshot,
+    VersionWatch,
+)
+from repro_torch.core.dht import (
+    MetadataDHT,
+    ProviderFailed,
+    TrafficStats,
+    page_checksum,
+)
+from repro_torch.core.page_cache import CacheKey, FetchPlan, PageCache
+from repro_torch.core.page_directory import PageAddress, PageDirectory
+from repro_torch.core.prefetch import PrefetchConfig, StridePrefetcher, WatchWarmer
+from repro_torch.core.provider import DataProvider, HealthConfig, ProviderManager
+from repro_torch.core.repair import RepairService
+from repro_torch.core.replica_balancer import BalancerConfig, ReplicaBalancer
+from repro_torch.core.segment_tree import (
+    BorderLink,
+    IntervalIndex,
+    NodeKey,
+    PageRef,
+    TreeNode,
+    ZERO_VERSION,
+    build_write_tree,
+    compute_border_links,
+    count_write_nodes,
+    traverse,
+    traverse_batch,
+)
+from repro_torch.core.version_manager import (
+    JournalEntry,
+    VersionAbandoned,
+    VersionManager,
+)
+
+__all__ = [
+    "BlobHandle",
+    "Cluster",
+    "DEFAULT_CACHE_BYTES",
+    "DEFAULT_SHARED_CACHE_BYTES",
+    "ReadResult",
+    "RetryPolicy",
+    "Session",
+    "Snapshot",
+    "VersionWatch",
+    "HealthConfig",
+    "RepairService",
+    "CacheKey",
+    "FetchPlan",
+    "PageAddress",
+    "PageCache",
+    "PageDirectory",
+    "PrefetchConfig",
+    "StridePrefetcher",
+    "WatchWarmer",
+    "MetadataDHT",
+    "ProviderFailed",
+    "TrafficStats",
+    "page_checksum",
+    "DataProvider",
+    "ProviderManager",
+    "BalancerConfig",
+    "ReplicaBalancer",
+    "BorderLink",
+    "IntervalIndex",
+    "NodeKey",
+    "PageRef",
+    "TreeNode",
+    "ZERO_VERSION",
+    "build_write_tree",
+    "compute_border_links",
+    "count_write_nodes",
+    "traverse",
+    "traverse_batch",
+    "JournalEntry",
+    "VersionAbandoned",
+    "VersionManager",
+]

@@ -57,15 +57,17 @@ PORT_KERNELS = ("paged_split_kernel", "flash_fwd_tc_kernel", "flash_fwd_f32_kern
 SLOTS, PAGES = 8, 512
 
 
-def cell_requests(cfg, *, smoke: bool = False):
+def cell_requests(cfg, *, smoke: bool = False, bursts: int = 1):
     """The cell's burst: 16 requests, each a shared 128-token system prompt
     plus its own 64-token tail, 32 new tokens, greedy (``smoke``: 6 requests
-    of 16 + 8 tokens, 4 new tokens); prompts drawn from seed 0."""
+    of 16 + 8 tokens, 4 new tokens); prompts drawn from seed 0. With
+    ``bursts`` > 1, the tails of that many bursts in a row, drawn from the
+    same generator behind the same system prompt, ids numbered on."""
     n, system_len, tail_len, new = (6, 16, 8, 4) if smoke else (16, 128, 64, 32)
     rng = np.random.default_rng(0)
     system = rng.integers(0, cfg.vocab_size, system_len).tolist()
     return [Request(i, system + rng.integers(0, cfg.vocab_size, tail_len).tolist(), max_new_tokens=new)
-            for i in range(n)]
+            for i in range(n * bursts)]
 
 
 def warm_up(engine: ServingEngine) -> None:

@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine on the paged KV pool, the host-allocator
-mode of :class:`repro.serving.engine.ServingEngine`.
+"""Continuous-batching serving engine on the paged KV pool, the port of
+:class:`repro.serving.engine.ServingEngine` in both of its modes.
 
 * requests are admitted when a batch slot AND pool pages are available
   (provider-manager placement via :class:`PagedKVAllocator`), else they wait
@@ -10,9 +10,21 @@ mode of :class:`repro.serving.engine.ServingEngine`.
 * each step appends one token per live row (page WRITE) and attends over the
   striped pages (page READ).
 
+In blob mode (``kv_client``, a :class:`BlobKVClient`) the page pool is a
+blob on a :class:`~repro_torch.core.Cluster` and the prefix index is the
+cluster-wide :class:`~repro_torch.core.PageDirectory`: full prompt pages are
+published as one ``writev`` version at admission, a decode page that fills is
+published through the session's async write window, and a shared prefix
+page that this engine's device pool does not hold at its published version
+is fetched with one vectored read per version. So engines with their own
+device pools (two users) share a system prompt without storing it twice.
+
 The pools are ``(L, P, T, K, hd)`` tensors updated in place: COW copies are
 ``index_copy_`` along the page axis, and decode steps write the new token's
-K/V straight into them.
+K/V straight into them. A page crosses to the blob store as the bytes of
+:func:`repro_torch.serving.blob_kv.pack_kv_page` (:func:`pack_page`, one
+device-to-host copy) and comes back with one host-to-device copy
+(:func:`load_page`).
 """
 
 from __future__ import annotations
@@ -20,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import queue
 import time
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -28,7 +41,40 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import Model, build_model, serving_params
+from repro_torch.serving.blob_kv import BlobKVClient
 from repro_torch.storage.kvcache import PagedKVAllocator
+
+
+def pack_page(k: torch.Tensor, v: torch.Tensor, page_size: int) -> np.ndarray:
+    """One page's K and V (``(L, T, K, hd)`` each, any strides, any device)
+    as a fresh ``page_size``-byte host buffer, byte-identical to
+    :func:`~repro_torch.serving.blob_kv.pack_kv_page`: K of all layers, then
+    V, each in C order, zero-padded. The bytes are copied as they are (bf16
+    stays bf16) with one device-to-host copy; the buffer owns its memory, so
+    the blob write plane freezes it instead of copying it, and no later
+    write to the pool can reach it."""
+    raw = torch.stack([k, v]).view(-1).view(torch.uint8)
+    if raw.numel() > page_size:
+        raise ValueError(f"KV page payload ({raw.numel()}B) exceeds blob page ({page_size}B)")
+    buf = np.zeros(page_size, np.uint8)
+    torch.from_numpy(buf[: raw.numel()]).copy_(raw)
+    return buf
+
+
+def load_page(pool_k: torch.Tensor, pool_v: torch.Tensor, page: int, buf: np.ndarray) -> None:
+    """Inverse of :func:`pack_page`: write a fetched page buffer into page
+    ``page`` of both ``(L, P, T, K, hd)`` pools, in the pools' dtype, with one
+    host-to-device copy."""
+    L, _, T, K, hd = pool_k.shape
+    nbytes = 2 * L * T * K * hd * pool_k.element_size()
+    with warnings.catch_warnings():
+        # fetched pages are frozen (read-only) arrays; the tensor is only
+        # the source of one copy, never written
+        warnings.simplefilter("ignore", UserWarning)
+        host = torch.from_numpy(np.asarray(buf[:nbytes], np.uint8))
+    kv = host.to(pool_k.device).view(pool_k.dtype).view(2, L, T, K, hd)
+    pool_k[:, page].copy_(kv[0])
+    pool_v[:, page].copy_(kv[1])
 
 
 @dataclasses.dataclass
@@ -60,13 +106,9 @@ class ServingEngine:
         n_pages: int = 256,
         max_pages_per_seq: int = 32,
         rng_seed: int = 0,
-        kv_client=None,
+        kv_client: Optional[BlobKVClient] = None,
         device="cuda",
     ) -> None:
-        if kv_client is not None:
-            raise NotImplementedError(
-                "blob mode (kv_client) is not ported yet (ROADMAP Queue 1, item 4)"
-            )
         self.device = resolve_device(device)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
@@ -77,7 +119,21 @@ class ServingEngine:
         self.T = cfg.kv_page_tokens
         self.max_slots = max_slots
         self.Rmax = max_pages_per_seq
-        self.alloc = PagedKVAllocator(n_pages, self.T)
+        #: blob mode: the page pool is a blob on a Cluster and the prefix
+        #: index is the cluster-wide PageDirectory -- slot ids come from the
+        #: shared BlobKVStore, so the device pool mirrors the blob geometry
+        self.kv = kv_client
+        if kv_client is not None:
+            if kv_client.store.page_tokens != self.T:
+                raise ValueError("BlobKVStore page_tokens != model kv_page_tokens")
+            n_pages = kv_client.store.n_pages
+            self.alloc = None
+            #: slot -> published version currently resident in the device
+            #: pool (a stale entry just causes a refetch: versions are
+            #: monotone, so a reused slot republishes at a higher version)
+            self._resident: Dict[int, int] = {}
+        else:
+            self.alloc = PagedKVAllocator(n_pages, self.T)
         self._rng = np.random.default_rng(rng_seed)
 
         L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
@@ -140,22 +196,46 @@ class ServingEngine:
             busy = set()
             for s in self._slots:
                 if s is not None:
-                    busy.update(s["seq"].pages)
-            if self.alloc.free_pages < need_pages:
-                # not enough pages: requeue, stop admitting (backpressure)
-                self._queue.put(req)
-                return
-            seq, shared_tokens, cow = self.alloc.admit(prompt)
-            try:
-                cow = cow + self.alloc.fork_for_batch(seq.seq_id, busy)
-            except MemoryError:
-                self.alloc.finish(seq.seq_id)
-                self._queue.put(req)
-                return
-            pages = seq.pages
-            # partial-page prefix reuse + batch-conflict forks: copy donor
-            # pages on device before anything writes the pool
-            self._copy_pages(cow)
+                    busy.update(s["seq"].pages if self.kv is None else s["seq"].slots)
+            if self.kv is None:
+                if self.alloc.free_pages < need_pages:
+                    # not enough pages: requeue, stop admitting (backpressure)
+                    self._queue.put(req)
+                    return
+                seq, shared_tokens, cow = self.alloc.admit(prompt)
+                try:
+                    cow = cow + self.alloc.fork_for_batch(seq.seq_id, busy)
+                except MemoryError:
+                    self.alloc.finish(seq.seq_id)
+                    self._queue.put(req)
+                    return
+                pages = seq.pages
+                # partial-page prefix reuse + batch-conflict forks: copy donor
+                # pages on device before anything writes the pool
+                self._copy_pages(cow)
+            else:
+                try:
+                    seq, shared_tokens, fetches = self.kv.admit(prompt)
+                except MemoryError:
+                    # blob pool exhausted (directory had nothing evictable):
+                    # same backpressure as the host allocator path
+                    self._queue.put(req)
+                    return
+                pages = seq.slots
+                # make shared prefix pages device-resident (one vectored
+                # read through the shared cache tier per version group)
+                self._load_shared_pages(fetches)
+                try:
+                    forks = self.kv.fork_for_batch(seq, busy)
+                except MemoryError:
+                    self.kv.finish(seq)
+                    self._queue.put(req)
+                    return
+                self._copy_pages(forks)
+                for _, d in forks:
+                    # forked bytes are local-only: no published version is
+                    # resident in that slot anymore
+                    self._resident.pop(d, None)
             slot = self._slots.index(None)
 
             # prefill the whole (padded) prompt for its last-position logits;
@@ -171,6 +251,18 @@ class ServingEngine:
                 dst = torch.tensor(pages[first_new:n_prompt_pages], dtype=torch.long, device=self.device)
                 self.pool_k.index_copy_(1, dst, pk[:, first_new:n_prompt_pages].to(self.pool_k.dtype))
                 self.pool_v.index_copy_(1, dst, pv[:, first_new:n_prompt_pages].to(self.pool_v.dtype))
+            if self.kv is not None:
+                for p in range(first_new, n_prompt_pages):
+                    self._resident.pop(pages[p], None)  # local bytes now newer
+                # publish the fresh FULL prompt pages as one writev (one
+                # version) and register them in the cluster prefix directory
+                full_pages = len(prompt) // self.T
+                payloads = {p: pack_page(pk[:, p], pv[:, p], self.kv.store.page_size)
+                            for p in range(first_new, full_pages)}
+                self.kv.publish_prompt(seq, payloads)
+                for p in range(first_new, full_pages):
+                    addr = seq.page_addr[p]
+                    self._resident[addr.page] = addr.version
 
             next_tok = self._sample(logits[0].cpu().numpy(), req.temperature)
             now = time.perf_counter()
@@ -179,6 +271,16 @@ class ServingEngine:
                 ttft=now - self._submitted.pop(req.request_id, now),
                 shared=shared_tokens, length=len(prompt),
             )
+
+    def _load_shared_pages(self, fetches) -> None:
+        """Fetch shared prefix pages this device pool doesn't hold at their
+        published version and write them in (admit-time gather)."""
+        stale = [a for _, a in fetches if self._resident.get(a.page) != a.version]
+        if not stale:
+            return
+        for addr, buf in zip(stale, self.kv.fetch_pages(stale)):
+            load_page(self.pool_k, self.pool_v, addr.page, buf)
+            self._resident[addr.page] = addr.version
 
     def _sample(self, logits: np.ndarray, temperature: float) -> int:
         logits = logits[: self.cfg.vocab_size]
@@ -199,7 +301,11 @@ class ServingEngine:
         # COW-fork / grow head pages before writing this step's token
         copies: List[Tuple[int, int]] = []
         for i in active:
-            copies.extend(self.alloc.append_token(self._slots[i]["seq"].seq_id))
+            seq = self._slots[i]["seq"]
+            if self.kv is not None:
+                self.kv.append_token(seq)  # head always fresh: no COW
+            else:
+                copies.extend(self.alloc.append_token(seq.seq_id))
         self._copy_pages(copies)
 
         B = self.max_slots
@@ -210,12 +316,29 @@ class ServingEngine:
         tokens = np.zeros((B,), np.int64)
         for i in active:
             st = self._slots[i]
-            tables[i] = self.alloc.table(st["seq"].seq_id, self.Rmax)
+            if self.kv is not None:
+                tables[i] = self.kv.table(st["seq"], self.Rmax)
+            else:
+                tables[i] = self.alloc.table(st["seq"].seq_id, self.Rmax)
             page_pos[i] = np.arange(self.Rmax) * self.T  # positional pages (no ring)
             lengths[i] = st["length"] + len(st["generated"]) - 1
             tokens[i] = st["generated"][-1]
 
         logits = self._decode(tables, page_pos, lengths, tokens).cpu().numpy()
+
+        if self.kv is not None:
+            # a head page that just FILLED becomes a published blob version
+            # (write_async: the publish pipeline overlaps the next steps)
+            for i in active:
+                seq = self._slots[i]["seq"]
+                if seq.length and seq.length % self.T == 0:
+                    idx = seq.length // self.T - 1
+                    if seq.page_addr[idx] is None and idx not in self.kv.pending_pages(seq):
+                        sid = seq.slots[idx]
+                        self.kv.publish_page_async(
+                            seq, idx,
+                            pack_page(self.pool_k[:, sid], self.pool_v[:, sid], self.kv.store.page_size),
+                        )
 
         for i in active:
             st = self._slots[i]
@@ -227,7 +350,10 @@ class ServingEngine:
 
     def _finish(self, slot: int) -> None:
         st = self._slots[slot]
-        self.alloc.finish(st["seq"].seq_id)
+        if self.kv is not None:
+            self.kv.finish(st["seq"])
+        else:
+            self.alloc.finish(st["seq"].seq_id)
         self._done[st["req"].request_id] = Completion(
             st["req"].request_id,
             st["generated"],

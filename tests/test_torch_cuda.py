@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, on a card;
+and blob mode's pages through the card.
 
 Every test here is marked ``cuda`` and skips where there is no card. On a
 machine with one (and ``nvcc``; the kernels build on first use):
@@ -124,3 +125,54 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         flash_attention_cuda(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
     with pytest.raises(ValueError, match="device"):
         flash_attention_cuda(q, q.cpu(), q)
+
+
+# ------------------------------ blob mode ------------------------------
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_page_moves_through_the_card_byte_for_byte(dev, dtype):
+    from repro_torch.serving.engine import load_page, pack_page
+
+    rng = np.random.default_rng(5)
+    k, v = (torch.from_numpy(rng.standard_normal((3, 4, 16, 2, 64), dtype=np.float32)).to(dev, getattr(torch, dtype))
+            for _ in range(2))
+    page_size = 1 << (2 * k[:, 1].numel() * k.element_size() - 1).bit_length()
+    buf = pack_page(k[:, 1], v[:, 1], page_size)
+    np.testing.assert_array_equal(buf, pack_page(k[:, 1].cpu(), v[:, 1].cpu(), page_size))
+    pool_k, pool_v = torch.zeros_like(k), torch.zeros_like(v)
+    buf.flags.writeable = False  # as a fetched page is
+    load_page(pool_k, pool_v, 2, buf)
+    assert torch.equal(pool_k[:, 2], k[:, 1]) and torch.equal(pool_v[:, 2], v[:, 1])
+    assert not pool_k[:, 1].any()
+
+
+def test_blob_engines_on_the_card_match_the_host_allocator_engine(dev):
+    """Two blob-mode engines on one store (the second takes the first's
+    system-prompt pages from the directory) decode the host-allocator
+    engine's tokens, on the card's kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import Cluster
+    from repro_torch.models.lm import build_model
+    from repro_torch.serving import BlobKVClient, BlobKVStore, Request, ServingEngine
+
+    cfg = get_config("llama3_2-1b").smoke()
+    params = build_model(cfg).init(seed=0, device=dev)
+    system = list(range(100, 116))
+    bursts = [[Request(8 * b + i, system + [200 + 8 * (8 * b + i) + j for j in range(8)], max_new_tokens=12)
+               for i in range(6)] for b in range(2)]
+    host = ServingEngine(cfg, params, max_slots=4, n_pages=64, device=dev)
+    cluster = Cluster(n_data_providers=2, n_metadata_providers=2)
+    try:
+        store = BlobKVStore.for_kv(cluster, n_pages=64, page_tokens=cfg.kv_page_tokens, n_layers=cfg.n_layers,
+                                   n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, dtype=np.uint16)
+        for burst in bursts:
+            blob = ServingEngine(cfg, params, max_slots=4, device=dev, kv_client=BlobKVClient(store))
+            for r in burst:
+                host.submit(r)
+                blob.submit(r)
+            want, got = host.run_until_drained(), blob.run_until_drained()
+            for r in burst:
+                assert got[r.request_id].tokens == want[r.request_id].tokens, r.request_id
+        assert all(got[r.request_id].prefill_skipped_tokens == len(system) for r in bursts[1])
+        assert blob.kv.stats["published_pages"] == 12  # 6 tails, 6 decode pages
+    finally:
+        cluster.close()

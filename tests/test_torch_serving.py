@@ -175,6 +175,19 @@ def test_default_device_entry_points_raise_without_a_card(setup, monkeypatch):
 
 
 def test_blob_mode_not_ported(setup):
+    """Blob mode is ported (``tests/test_torch_blob_kv.py``): a ``kv_client``
+    is taken, its page geometry checked against the model's. What the port
+    has not copied of the storage core is absent from ``repro_torch.core``."""
     _, _, tcfg, tparams = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(tcfg, tparams, device="cpu", kv_client=object())
+    from types import SimpleNamespace
+
+    import repro_torch.core
+
+    wrong = SimpleNamespace(store=SimpleNamespace(page_tokens=tcfg.kv_page_tokens + 1, n_pages=64))
+    with pytest.raises(ValueError, match="page_tokens"):
+        ServingEngine(tcfg, tparams, device="cpu", kv_client=wrong)
+    right = SimpleNamespace(store=SimpleNamespace(page_tokens=tcfg.kv_page_tokens, n_pages=16))
+    engine = ServingEngine(tcfg, tparams, device="cpu", kv_client=right)
+    assert engine.alloc is None and engine.pool_k.shape[1] == 16
+    for name in ("Federation", "FaultInjector", "BlobStore", "FlatView"):
+        assert not hasattr(repro_torch.core, name)
