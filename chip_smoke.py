@@ -13,7 +13,9 @@ JAX package), and it:
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it plus edge cases (inactive sentinel rows,
    a ring ``page_pos``, a sliding window, rows of up to 4096 tokens, ragged
-   and offset prompts, other head dims), and times the kernel, the plain
+   and offset prompts, head dims 16 to 128 and the padded 80 and 120 in bf16
+   and f32, and mixtral-8x7b's long windowed decode and prefill shapes), and
+   times the kernel, the plain
    version and, where one exists, the single PyTorch call that computes the
    same function, and the kernels under other launch plans (the paged
    kernel's split count, the flash kernel's heads per CTA);
@@ -37,8 +39,27 @@ JAX package), and it:
    the store's, clients' and cluster's counters, the host time of each
    client call and the time of one page's device-to-host and host-to-device
    copies;
-6. prints a JSON line with each kernel's launches, error, times and grid at
-   the main-path shape, and, as the last line, ``{"ok": true, "device": {...}}``.
+6. serves 8 requests (a shared 64-token prefix plus a 64-token tail each,
+   16 new tokens) through ``h2o-danube-3-4b`` at full width and depth (24
+   layers, d_model 3840, head dim 120: both kernels at a padded width)
+   with 8 slots and 256 pages, and holds a captured engine decode step, one
+   prefill and one decode step to the ``impl="ref"`` oracles;
+7. serves 8 requests (a shared 4096-token system prompt plus a 64-token
+   tail each, 32 new tokens) through ``mixtral-8x7b`` at full width, cut to
+   16 of its 32 layers (32 layers of bf16 weights are 93 GB, more than the
+   card holds), with 8 slots and 1024 pages of 64 tokens: rows of 4160-4192
+   tokens under its 4096-token sliding window. It prints the peak memory of
+   the build and of the run, tok/s, TTFT, the median decode step and the
+   device time of one decode step beside the expert weights' byte bound;
+   holds every attention call of one engine decode step and of one prefill
+   (each layer's kernel) to the plain version, and the logits of that step
+   and of the prefill to ``impl="ref"`` when no router choice differs
+   between the two runs (a flipped choice moves a row's logits by more than
+   any kernel error; the flips are counted and printed);
+8. prints a JSON line with each kernel's launches, error, times and grid at
+   the main-path shape (and its times at the danube and mixtral shapes, and
+   its launches in steps 6 and 7), and, as the last line,
+   ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero before the last line is printed.
 """
@@ -46,6 +67,7 @@ Any failure exits nonzero before the last line is printed.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -62,7 +84,15 @@ ROOT = Path(__file__).resolve().parent
 # and dense bf16 tensor-core rate, for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
-TOL = {"paged_attention": 3e-2, "flash_attention": 2e-2}  # bf16, tests/test_kernels.py
+TOL = {"flash_attention": 2e-2}  # bf16, tests/test_kernels.py
+# f32, the same file; the paged kernel's (o, m, l) are f32 whatever the pool's dtype
+TOL_F32 = {"paged_attention": 3e-5, "flash_attention": 2e-5}
+# bf16 flash output: max |kernel - plain| in a (token, head) row over the
+# row's max |plain|. Both sides round an f32 result to bf16, one step of
+# which is at most 2^-7 = 7.8e-3 of the row's largest value; the rest of
+# the limit covers the f32 differences before rounding.
+ROW_TOL = 1e-2
+MOE_TOL = 2e-2  # MoE layer in bf16 vs an f32 loop: max |d| over max |f32| per token
 LOGITS_TOL = 3e-2  # max |kernel - ref| logits over max |ref logits|, bf16 over 16 layers
 
 
@@ -119,15 +149,17 @@ def time_ms(fn, iters: int = 50, flush: torch.Tensor = None) -> float:
 
 
 # ------------------------------ paged decode ------------------------------
-def paged_case(gen, *, B=8, H=32, K=8, D=64, T=64, R=32, P=512, lengths, window=None, ring=None):
+def paged_case(gen, *, B=8, H=32, K=8, D=64, T=64, R=32, P=512, lengths, window=None, ring=None,
+               dtype=torch.bfloat16):
     """Inputs shaped as the engine gives them: each row's pages are distinct
     random pool pages, the rest of its table is the sentinel P; a length-0
     row is inactive (all sentinel). With ``ring`` pages, page_pos is the
-    sliding-window ring layout (page r holds the newest block j = r mod R)."""
+    sliding-window ring layout (page r holds the newest block j = r mod R).
+    q and the pools in ``dtype``."""
     dev = gen.device
-    q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
-    pool_k = torch.randn((P, T, K, D), generator=gen, device=dev).to(torch.bfloat16)
-    pool_v = torch.randn((P, T, K, D), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype)
+    pool_k = torch.randn((P, T, K, D), generator=gen, device=dev).to(dtype)
+    pool_v = torch.randn((P, T, K, D), generator=gen, device=dev).to(dtype)
     perm = torch.randperm(P, generator=gen, device=dev).cpu().numpy()
     tables = np.full((B, R), P, np.int32)
     page_pos = np.zeros((B, R), np.int32)
@@ -171,11 +203,24 @@ def paged_work(args, window):
     return nbytes, flops
 
 
+def paged_errs(got, want, live) -> tuple:
+    """Kernel (o, m, l) against plain (o, m, l) on the live rows: (max abs
+    error of the normalised o, the same over 1 + |plain| (held to the f32
+    tolerance: both sides read the same K/V and compute in f32, whatever
+    the pool's dtype), max of m's abs and l's relative error)."""
+    (o, m, l), (po, pm, pl) = got, want
+    d = (o[live] / l[live][..., None] - po[live] / pl[live][..., None]).abs()
+    scaled = (d / (1 + (po[live] / pl[live][..., None]).abs())).max().item()
+    stat_err = max((m[live] - pm[live]).abs().max().item(),
+                   ((l[live] - pl[live]).abs() / pl[live]).max().item())
+    return d.max().item(), scaled, stat_err
+
+
 def check_paged(args, window, name):
     from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
 
     o, m, l = paged_attention_cuda(*args, window=window)
-    po, pm, pl = paged_attention_plain(*args, window=window)
+    want = paged_attention_plain(*args, window=window)
     torch.cuda.synchronize()
     for t in (o, m, l):
         check(bool(torch.isfinite(t).all()), f"paged {name}: non-finite output")
@@ -184,38 +229,59 @@ def check_paged(args, window, name):
     if dead.any():
         check(bool((o[dead] == 0).all() and (l[dead] == 0).all() and (m[dead] == -1e30).all()),
               f"paged {name}: an inactive row is not o=0, l=0, m=-1e30")
-    live = ~dead
-    err = (o[live] / l[live][..., None] - po[live] / pl[live][..., None]).abs().max().item()
-    stat_err = max((m[live] - pm[live]).abs().max().item(),
-                   ((l[live] - pl[live]).abs() / pl[live]).max().item())
-    print(f"  paged_attention {name}: max abs err {err:.3e} (tol {TOL['paged_attention']}), "
+    err, scaled, stat_err = paged_errs((o, m, l), want, ~dead)
+    tol = TOL_F32["paged_attention"]
+    print(f"  paged_attention {name}: max abs err {err:.3e}, over 1 + |plain| {scaled:.3e} (tol {tol}), "
           f"m/l err {stat_err:.3e}", flush=True)
-    check(err <= TOL["paged_attention"] and stat_err <= 1e-3, f"paged {name} disagrees with plain")
+    check(scaled <= tol and stat_err <= 1e-3, f"paged {name} disagrees with plain")
     return err
 
 
 # ------------------------------ flash prefill ------------------------------
-def flash_case(gen, *, B=1, Sq=192, Sk=192, H=32, K=8, D=64, causal=True, window=None, q_start=0):
+def flash_case(gen, *, B=1, Sq=192, Sk=192, H=32, K=8, D=64, causal=True, window=None, q_start=0,
+               dtype=torch.bfloat16):
     dev = gen.device
-    q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn((B, Sk, K, D), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((B, Sk, K, D), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, Sk, K, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, Sk, K, D), generator=gen, device=dev).to(dtype)
     return (q, k, v), dict(causal=causal, window=window, q_start=q_start)
+
+
+def flash_mask(Sq, Sk, *, causal, window, q_start, device=None) -> torch.Tensor:
+    """(Sq, Sk) bool: the keys each query attends to."""
+    qpos = q_start + torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return mask
 
 
 def flash_work(args, kw):
     q, k, _ = args
     B, Sq, H, D = q.shape
-    Sk = k.shape[1]
-    qpos = kw["q_start"] + torch.arange(Sq)[:, None]
-    kpos = torch.arange(Sk)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool)
-    if kw["causal"]:
-        mask &= kpos <= qpos
-    if kw["window"]:
-        mask &= kpos > qpos - kw["window"]
+    mask = flash_mask(Sq, k.shape[1], causal=kw["causal"], window=kw["window"], q_start=kw["q_start"])
     nbytes = sum(t.numel() * t.element_size() for t in args) + q.numel() * q.element_size()
     return nbytes, 4 * B * H * D * int(mask.sum())
+
+
+def row_err(got, want) -> float:
+    """max |got - want| in each row of the last dim over the row's max |want|,
+    the largest over the rows."""
+    d = (got.float() - want.float()).abs().amax(dim=-1)
+    return (d / want.float().abs().amax(dim=-1).clamp_min(1e-30)).max().item()
+
+
+def flash_ok(got, want) -> tuple:
+    """(max abs error, row error, whether both are within the limits): bf16
+    output also within ``ROW_TOL`` of each (token, head) row's largest."""
+    err = (got.float() - want.float()).abs().max().item()
+    if got.dtype != torch.bfloat16:
+        return err, None, err <= TOL_F32["flash_attention"]
+    rel = row_err(got, want)
+    return err, rel, err <= TOL["flash_attention"] and rel <= ROW_TOL
 
 
 def check_flash(args, kw, name):
@@ -225,9 +291,13 @@ def check_flash(args, kw, name):
     want = flash_attention_plain(*args, **kw)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), f"flash {name}: non-finite output")
-    err = (got.float() - want.float()).abs().max().item()
-    print(f"  flash_attention {name}: max abs err {err:.3e} (tol {TOL['flash_attention']})", flush=True)
-    check(err <= TOL["flash_attention"], f"flash {name} disagrees with plain")
+    err, rel, ok = flash_ok(got, want)
+    if rel is None:
+        print(f"  flash_attention {name}: max abs err {err:.3e} (tol {TOL_F32['flash_attention']})", flush=True)
+    else:
+        print(f"  flash_attention {name}: max abs err {err:.3e} (tol {TOL['flash_attention']}), "
+              f"row err {rel:.3e} (tol {ROW_TOL})", flush=True)
+    check(ok, f"flash {name} disagrees with plain")
     return err
 
 
@@ -235,6 +305,83 @@ def bound_ms(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ------------------------------ more shapes ------------------------------
+DANUBE_LENGTHS = [129, 133, 137, 140, 144, 131, 135, 142]  # h2o-danube-3-4b's engine mid-decode
+MIXTRAL_LENGTHS = [4161, 4165, 4170, 4174, 4179, 4183, 4188, 4192]  # mixtral-8x7b's rows in decode
+MIXTRAL_PROMPT = 4160  # a 4096-token system prompt plus a 64-token tail
+WINDOW = 4096  # mixtral-8x7b's (and h2o-danube-3-4b's) sliding window
+
+
+def wide_head_cases(gen, errs) -> None:
+    """Head dims that are not a power of two, in bf16 and f32: 120
+    (h2o-danube-3-4b: 32 heads over 8 kv-heads) and 80 (zamba2-2.7b: 32
+    heads, 32 kv-heads). Both kernels run them at a padded width."""
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for args, name in (
+            (paged_case(gen, D=120, lengths=DANUBE_LENGTHS, dtype=dt), "head_dim 120"),
+            (paged_case(gen, K=32, D=80, lengths=MAIN_LENGTHS, window=100, dtype=dt),
+             "head_dim 80 (H=K=32), window 100"),
+        ):
+            errs["paged_attention"] = max(errs["paged_attention"], check_paged(*args, f"{name}, {tag} pool"))
+        for args, name in (
+            (flash_case(gen, Sq=128, Sk=128, D=120, dtype=dt), "head_dim 120 (Sq=Sk=128)"),
+            (flash_case(gen, Sq=150, Sk=150, K=32, D=80, window=64, dtype=dt),
+             "head_dim 80 (H=K=32), ragged Sq=Sk=150, window 64"),
+        ):
+            errs["flash_attention"] = max(errs["flash_attention"], check_flash(*args, f"{name}, {tag}"))
+
+
+def shape_rows(gen, flush) -> dict:
+    """Kernel, plain and library times and the bound at the shapes of steps
+    6 and 7: h2o-danube-3-4b's (head dim 120, a padded width) and
+    mixtral-8x7b's (8 rows of 4161-4192 tokens over 72-entry tables, and a
+    4160-token prompt, both under the 4096-token window). Each is checked
+    against the plain version first. The library call for flash is SDPA
+    with the causal window as an explicit boolean mask; the paged kernel has
+    none (no single call reads a page table)."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {"paged_attention": {}, "flash_attention": {}}
+    cases = {
+        "danube": (dict(D=120, lengths=DANUBE_LENGTHS), dict(Sq=128, Sk=128, D=120)),
+        "mixtral": (dict(D=128, R=72, P=1024, lengths=MIXTRAL_LENGTHS, window=WINDOW),
+                    dict(Sq=MIXTRAL_PROMPT, Sk=MIXTRAL_PROMPT, D=128, window=WINDOW)),
+    }
+    for tag, (pk, fk) in cases.items():
+        args, win = paged_case(gen, **pk)
+        row = dict(max_abs_err=check_paged(args, win, f"{tag} decode shape {pk}"),
+                   ms=time_ms(lambda: paged_attention_cuda(*args, window=win), flush=flush),
+                   plain_ms=time_ms(lambda: paged_attention_plain(*args, window=win), flush=flush),
+                   library_ms=None)
+        row.update(zip(("bound_ms", "bound_by"), bound_ms(*paged_work(args, win))))
+        rows["paged_attention"][tag] = row
+        del args
+
+        (q, k, v), kw = flash_case(gen, **fk)
+        err = check_flash((q, k, v), kw, f"{tag} prefill shape {fk}")
+        Sq, Sk = q.shape[1], k.shape[1]
+        mask = flash_mask(Sq, Sk, causal=True, window=kw["window"], q_start=0, device=q.device)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        library = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+        lib_err = (library().transpose(1, 2).float() - flash_attention_cuda(q, k, v, **kw).float()).abs().max().item()
+        iters = 50 if Sq <= 1024 else 10  # the plain version materialises Sq x Sk scores
+        row = dict(max_abs_err=err, ms=time_ms(lambda: flash_attention_cuda(q, k, v, **kw), iters),
+                   plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, **kw), iters),
+                   library_ms=time_ms(library, iters))
+        row.update(zip(("bound_ms", "bound_by"), bound_ms(*flash_work((q, k, v), kw))))
+        rows["flash_attention"][tag] = row
+        print(f"  SDPA with the explicit mask at the {tag} prefill shape: max abs difference from the "
+              f"kernel {lib_err:.3e}", flush=True)
+        del q, k, v, qt, kt, vt, mask
+    for name, by_tag in rows.items():
+        for tag, r in by_tag.items():
+            print(f"  {name} at the {tag} shape: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"library {r['library_ms']} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
+    return rows
 
 
 # ------------------------------ launch sweep ------------------------------
@@ -256,13 +403,13 @@ def sweep(gen, flush) -> None:
         args, window = paged_case(gen, R=R, lengths=lengths)
         q, pool_k, _, tables, _, lengths_t = args
         shape = (q.shape[0], q.shape[1], pool_k.shape[2], q.shape[2], tables.shape[1], n_sm)
-        po, _, pl = pa.paged_attention_plain(*args, window=window)
+        want = pa.paged_attention_plain(*args, window=window)
         live = lengths_t > 0
         for S in (1, 2, 3, 4, 5, 8):
             plan = pa.launch_plan(*shape, n_splits=S)
-            o, _, l = pa.launch(*args, window, 0, plan)
-            err = (o[live] / l[live][..., None] - po[live] / pl[live][..., None]).abs().max().item()
-            check(err <= TOL["paged_attention"], f"paged S={S} disagrees with plain ({err})")
+            _, scaled, stat_err = paged_errs(pa.launch(*args, window, 0, plan), want, live)
+            check(scaled <= TOL_F32["paged_attention"] and stat_err <= 1e-3,
+                  f"paged S={S} disagrees with plain ({scaled}, m/l {stat_err})")
             ms = time_ms(lambda: pa.launch(*args, window, 0, plan), flush=flush)
             mark = " (the wrapper's plan)" if S == pa.launch_plan(*shape).n_splits else ""
             print(f"  sweep paged_attention {tag}: S={S}, {int(np.prod(plan.grid))} CTAs: "
@@ -272,9 +419,8 @@ def sweep(gen, flush) -> None:
     shape = (q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3], q.dtype)
     for hp in (1, 2, 4):
         plan = fa.launch_plan(*shape, heads_per_cta=hp)
-        err = (fa.launch(q, k, v, kw["causal"], kw["window"], kw["q_start"], plan).float()
-               - want.float()).abs().max().item()
-        check(err <= TOL["flash_attention"], f"flash {hp} heads per CTA disagrees with plain ({err})")
+        err, rel, ok = flash_ok(fa.launch(q, k, v, kw["causal"], kw["window"], kw["q_start"], plan), want)
+        check(ok, f"flash {hp} heads per CTA disagrees with plain ({err}, row {rel})")
         ms = time_ms(lambda: fa.launch(q, k, v, kw["causal"], kw["window"], kw["q_start"], plan))
         mark = " (the wrapper's plan)" if hp == fa.launch_plan(*shape).heads_per_cta else ""
         print(f"  sweep flash_attention: {hp} heads per CTA, {int(np.prod(plan.grid))} CTAs: "
@@ -513,6 +659,368 @@ def blob_phase(cfg, host, host_done, host_rec, card, kernels) -> dict:
         cluster.close()
 
 
+def hold_to_ref(model, params, captured, step, prompt, dev, prefix="") -> None:
+    """A captured engine decode step, then one prefill of ``prompt`` and one
+    decode step from it, each against the same model through the
+    ``impl="ref"`` oracles: max |logits difference| over max |ref logits|
+    within ``LOGITS_TOL``."""
+    check(bool(captured), f"{prefix}decode step {step} was never reached")
+    cache, tokens, live = captured["cache"], captured["tokens"], captured["live"]
+    want, _ = model.decode_step(params, cache, tokens, impl="ref")
+    got, want = captured["logits"][live], want[live]  # an idle slot's logits are never read
+    rel_e = (got - want).abs().max().item() / want.abs().max().item()
+    print(f"{prefix}engine decode step {step} ({int(live.sum())} live rows) vs ref: "
+          f"max abs err / max |ref| = {rel_e:.3e} (tol {LOGITS_TOL})", flush=True)
+    check(bool(torch.isfinite(got).all()) and rel_e <= LOGITS_TOL, f"{prefix}engine decode disagrees with ref")
+    captured.clear()
+    del cache, got, want
+
+    toks = torch.tensor([prompt], dtype=torch.long, device=dev)
+    lk, ck = model.prefill(params, toks)
+    lr, cr = model.prefill(params, toks, impl="ref")
+    rel = (lk - lr).abs().max().item() / lr.abs().max().item()
+    print(f"{prefix}prefill logits vs ref: max abs err / max |ref| = {rel:.3e} (tol {LOGITS_TOL})", flush=True)
+    check(bool(torch.isfinite(lk).all()) and rel <= LOGITS_TOL, f"{prefix}prefill logits disagree with ref")
+    nxt = lk.argmax(-1)
+    dk_logits, _ = model.decode_step(params, clone_cache(ck), nxt)
+    dr_logits, _ = model.decode_step(params, clone_cache(ck), nxt, impl="ref")
+    rel_d = (dk_logits - dr_logits).abs().max().item() / dr_logits.abs().max().item()
+    print(f"{prefix}decode logits vs ref: max abs err / max |ref| = {rel_d:.3e} (tol {LOGITS_TOL})", flush=True)
+    check(bool(torch.isfinite(dk_logits).all()) and rel_d <= LOGITS_TOL, f"{prefix}decode logits disagree with ref")
+
+
+def clone_cache(c) -> dict:
+    return {"kv": {k: v.clone() for k, v in c["kv"].items()}, "lengths": c["lengths"].clone()}
+
+
+def build_engine(cfg, name, dev, **engine_kw):
+    """Random weights from seed 0, drawn on the card straight into the
+    compute dtype (the MoE router in f32), and an engine on them; prints the
+    build's peak device memory."""
+    from repro_torch.models.lm import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev, dtype=cfg.cdtype())
+    engine = ServingEngine(cfg, params, device=dev, **engine_kw)
+    del params
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(engine.params))
+    w_bytes = sum(t.numel() * t.element_size() for t in _leaves(engine.params["blocks"]))
+    print(f"engine: {name}, {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} kv-heads of {cfg.head_dim}, vocab {cfg.vocab_size}: {n_params} parameters "
+          f"({w_bytes / 1e9:.2f} GB of block weights), pool {tuple(engine.pool_k.shape)} x2 "
+          f"{engine.pool_k.dtype}; built in {time.perf_counter() - t0:.2f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return model, engine
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def run_burst(engine, requests, kernels, name) -> tuple:
+    """Serve ``requests`` at once with every kernel count at 0; check that all
+    complete with in-range tokens and that every kernel ran. Returns
+    (completions, wall seconds, launches, peak memory bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    done, wall = serve_burst(engine, requests)
+    launches = {k.__name__.removesuffix("_cuda"): k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    for r in requests:
+        c = done[r.request_id]
+        check(len(c.tokens) == r.max_new_tokens and all(0 <= t < engine.cfg.vocab_size for t in c.tokens),
+              f"{name}: request {r.request_id}: bad tokens {c.tokens}")
+    check(all(n > 0 for n in launches.values()), f"{name}: a kernel never ran: {launches}")
+    print(f"{engine_line(name, done, wall)} (all {len(requests)} submitted at once, {engine.max_slots} "
+          f"slots); launches {launches}; peak memory {peak / 2**30:.2f} GiB", flush=True)
+    return done, wall, launches, peak
+
+
+DANUBE_CAPTURE_STEP = 8  # all 8 rows live
+
+
+def danube_phase(cfg, dev, kernels) -> dict:
+    """Step 6: h2o-danube-3-4b at full width and depth, head dim 120: 8
+    requests of a shared 64-token prefix plus a 64-token tail, 16 new
+    tokens, on 8 slots and 256 pages."""
+    from repro_torch.launch.profile_serve import prefix_requests, warm_up
+
+    model, engine = build_engine(cfg, cfg.arch_id, dev, max_slots=8, n_pages=256)
+    warm_up(engine)
+    requests = prefix_requests(cfg, 8, 64, 64, 16)
+    captured = capture_decode(engine, DANUBE_CAPTURE_STEP)
+    _, _, launches, _ = run_burst(engine, requests, kernels, "danube engine run")
+    hold_to_ref(model, engine.params, captured, DANUBE_CAPTURE_STEP, requests[0].prompt, engine.device,
+                prefix="danube ")
+    return launches
+
+
+MIXTRAL_LAYERS = 16  # of 32: 32 layers of bf16 weights (93 GB) exceed the card's 80 GB
+MIXTRAL_CAPTURE_STEP = 16  # rows of 4176 tokens: the window cuts in every row
+
+
+def record_routes() -> dict:
+    """Wrap the port's MoE dispatch so that, while ``state["on"]``, every
+    call's router top-k choices (each token's experts, sorted) are kept, in
+    call order, and the first call's inputs and output in ``state["first"]``."""
+    from repro_torch.models import moe
+
+    state = {"on": False, "calls": [], "first": None}
+    inner = moe._moe_local
+
+    def run(x, router, w1, wg, w2, cfg, **kw):
+        out = inner(x, router, w1, wg, w2, cfg, **kw)
+        if state["on"]:
+            top = torch.topk(x.float() @ router.float(), cfg.top_k, dim=-1).indices
+            state["calls"].append(top.sort(dim=-1).values)
+            if state["first"] is None:
+                state["first"] = (x, router, w1, wg, w2, out[0])
+        return out
+
+    moe._moe_local = run
+    return state
+
+
+def routed(state, fn):
+    """Run ``fn`` with the router's choices recorded; returns (its result,
+    the choices of each MoE call)."""
+    state["on"], state["calls"], state["first"] = True, [], None
+    try:
+        return fn(), state["calls"]
+    finally:
+        state["on"] = False
+
+
+def moe_plain(x, router, w1, wg, w2, cfg) -> tuple:
+    """A MoE layer in f32, written out: each token's top-k experts by its
+    own f32 gates, weights softmaxed over those k; each expert keeps its
+    first ``C = max(int(T*k/E * capacity_factor), 4)`` assignments in
+    (token, choice) order and drops the rest; a kept assignment adds
+    gate * w2(silu(x wg) * (x w1)). Returns (out (T, d) f32, assignments
+    dropped)."""
+    T, _ = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    C = max(int(T * k / E * cfg.capacity_factor), 4)
+    xf = x.float()
+    top_w, top_e = torch.topk(xf @ router.float(), k, dim=-1)
+    top_w = torch.softmax(top_w, dim=-1)
+    kept = [[] for _ in range(E)]
+    dropped = 0
+    for t, experts in enumerate(top_e.tolist()):
+        for j, e in enumerate(experts):
+            if len(kept[e]) < C:
+                kept[e].append((t, j))
+            else:
+                dropped += 1
+    out = torch.zeros_like(xf)
+    for e, pairs in enumerate(kept):
+        if not pairs:
+            continue
+        t, j = (torch.tensor(c, device=x.device) for c in zip(*pairs))
+        a = xf[t]
+        y = (torch.nn.functional.silu(a @ wg[e].float()) * (a @ w1[e].float())) @ w2[e].float()
+        out.index_add_(0, t, y * top_w[t, j][:, None])
+    return out, dropped
+
+
+def hold_moe(first, cfg, what) -> None:
+    """The port's first MoE call of a run (layer 0) against :func:`moe_plain`
+    on the same inputs: max |d| over max |f32| per token within ``MOE_TOL``."""
+    x, router, w1, wg, w2, got = first
+    want, dropped = moe_plain(x, router, w1, wg, w2, cfg)
+    rel = row_err(got, want)
+    print(f"  mixtral {what}, layer 0's MoE ({x.shape[0]} tokens, capacity "
+          f"{max(int(x.shape[0] * cfg.top_k / cfg.n_experts * cfg.capacity_factor), 4)}, {dropped} of "
+          f"{x.shape[0] * cfg.top_k} assignments dropped) vs an f32 loop over the chosen experts: "
+          f"max abs err {(got.float() - want).abs().max().item():.3e}, row err {rel:.3e} (tol {MOE_TOL})",
+          flush=True)
+    check(rel <= MOE_TOL, f"mixtral {what}: the MoE layer disagrees with the f32 loop")
+
+
+def route_flips(a, b) -> tuple:
+    """(token, layer) pairs whose chosen experts differ between two runs, of all."""
+    check(len(a) == len(b) and all(x.shape == y.shape for x, y in zip(a, b)), "runs of different shapes")
+    return sum(int((x != y).any(-1).sum()) for x, y in zip(a, b)), sum(x.shape[0] for x in a)
+
+
+def checked_attention(errs) -> callable:
+    """Route ``ops.flash_attention`` and ``ops.paged_attention`` through
+    wrappers that hold each kernel-path call against the plain version on
+    the very same inputs (the layer's own q, k, v, pools, tables and
+    lengths) and keep the errors: flash's (max abs, row error, within the
+    limits of :func:`flash_ok`), and paged's :func:`paged_errs` of the kernel's own (o, m, l),
+    from one more launch on the same inputs; returns the function that
+    restores them."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
+
+    flash, paged = ops.flash_attention, ops.paged_attention
+
+    def flash_checked(q, k, v, *, causal=True, window=None, q_start=0, impl=None):
+        out = flash(q, k, v, causal=causal, window=window, q_start=q_start, impl=impl)
+        if impl is None:
+            want = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+                                         window=window, q_start=q_start)
+            err, _, ok = flash_ok(out, want)
+            errs["flash_attention"].append((err, row_err(out, want), ok))
+        return out
+
+    def paged_checked(q, pool_k, pool_v, tables, page_pos, lengths, *, window=None, impl=None, **kw):
+        out = paged(q, pool_k, pool_v, tables, page_pos, lengths, window=window, impl=impl, **kw)
+        if impl is None:
+            args = (q.contiguous(), pool_k, pool_v, tables.to(torch.int32).contiguous(),
+                    page_pos.to(torch.int32).contiguous(), lengths.to(torch.int32).contiguous())
+            got = paged_attention_cuda(*args, window=window)
+            errs["paged_attention"].append(
+                paged_errs(got, paged_attention_plain(*args, window=window), lengths > 0))
+        return out
+
+    ops.flash_attention, ops.paged_attention = flash_checked, paged_checked
+
+    def restore():
+        ops.flash_attention, ops.paged_attention = flash, paged
+    return restore
+
+
+def step_ms(fn, dev, reps: int = 3) -> tuple:
+    """Median span of one synchronised call between CUDA events (the device
+    waits on the host inside it too); the device's busy time in one more
+    call from a ``torch.profiler`` trace (the union of its kernel and copy
+    intervals), and that call's six ops with the most device time, as
+    (name, ms, calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_serve import _merged_device_intervals
+
+    spans = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(dev)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize(dev)
+        spans.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    merged = _merged_device_intervals(prof.events())
+    top = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                  if e.self_device_time_total > 0), key=lambda t: -t[1])[:6]
+    return statistics.median(spans), sum(e - s for s, e in merged) / 1e3, top
+
+
+def mixtral_phase(cfg, dev, kernels) -> dict:
+    """Step 7: a MoE model with a sliding window, served with rows longer
+    than the window: 8 requests of a shared window-long system prompt plus
+    a one-page tail (4096 + 64 tokens for mixtral-8x7b), 32 new tokens, on 8
+    slots and 1024 pages, at most 72 a row."""
+    from repro_torch.launch.profile_serve import prefix_requests, warm_up
+
+    window = cfg.sliding_window
+    model, engine = build_engine(cfg, f"{cfg.arch_id} ({cfg.n_layers} layers)", dev, max_slots=8,
+                                 n_pages=1024, max_pages_per_seq=72)
+    warm_up(engine)
+    routes = record_routes()
+    requests = prefix_requests(cfg, 8, window, cfg.kv_page_tokens, 32)
+    decode_s, decode = [], engine._decode
+
+    def timed_decode(*args):
+        t0 = time.perf_counter()
+        out = decode(*args)
+        torch.cuda.synchronize(dev)
+        decode_s.append(time.perf_counter() - t0)
+        return out
+
+    engine._decode = timed_decode
+    captured = capture_decode(engine, MIXTRAL_CAPTURE_STEP)
+    done, wall, launches, peak = run_burst(engine, requests, kernels, "mixtral engine run")
+    check(bool(captured), f"mixtral decode step {MIXTRAL_CAPTURE_STEP} was never reached")
+    lengths = captured["cache"]["lengths"]
+    check(bool(captured["live"].all()) and int(lengths.min()) > window,
+          f"the captured step's rows are not all live and longer than the window: {lengths.tolist()}")
+    # expert weights every decode step reads: the capacity dispatch multiplies
+    # every expert's w1, wg and w2 (bf16) on every step
+    expert_bytes = cfg.n_layers * 3 * cfg.n_experts * cfg.d_model * cfg.d_ff * 2
+    bound = expert_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"  mixtral decode steps: {len(decode_s)}, median {statistics.median(decode_s) * 1e3:.2f} ms, "
+          f"least {min(decode_s) * 1e3:.2f} ms (host clock, synchronised); expert-weight bytes per step "
+          f"{expert_bytes} = {bound:.2f} ms at {HBM_BYTES_PER_S / 1e12} TB/s", flush=True)
+
+    # every attention call of the captured step, kernel path, held to the plain version
+    cache, tokens, live = captured["cache"], captured["tokens"], captured["live"]
+    layer_errs = {"flash_attention": [], "paged_attention": []}
+    restore = checked_attention(layer_errs)
+    try:
+        (got, _), routes_k = routed(routes, lambda: model.decode_step(engine.params, cache, tokens))
+    finally:
+        restore()
+    check(len(layer_errs["paged_attention"]) == cfg.n_layers, f"{len(layer_errs['paged_attention'])} paged calls")
+    worst, scaled, stat_err = (max(e) for e in zip(*layer_errs["paged_attention"]))
+    print(f"  mixtral decode step {MIXTRAL_CAPTURE_STEP} (rows of {lengths.min().item()}-{lengths.max().item()} "
+          f"tokens, window {window}): paged kernel (o, m, l) vs plain on each of its {cfg.n_layers} layers' "
+          f"inputs, normalised o max abs err {worst:.3e}, over 1 + |plain| {scaled:.3e} "
+          f"(tol {TOL_F32['paged_attention']}), m/l err {stat_err:.3e} (tol 1e-3); replayed logits vs the "
+          f"engine's: max abs difference {(got - captured['logits']).abs().max().item():.3e}", flush=True)
+    check(scaled <= TOL_F32["paged_attention"] and stat_err <= 1e-3,
+          "mixtral: a layer's paged kernel disagrees with plain")
+    hold_moe(routes["first"], cfg, f"decode step {MIXTRAL_CAPTURE_STEP}")
+
+    span_ms, busy_ms, top = step_ms(lambda: model.decode_step(engine.params, cache, tokens), dev)
+    print(f"  one mixtral decode step (8 rows): {span_ms:.3f} ms between CUDA events around the synchronised "
+          f"step, device busy {busy_ms:.3f} ms of it (profiler); expert-weight byte bound {bound:.2f} ms; "
+          f"most device time: " + "; ".join(f"{name} {ms:.3f} ms in {n} calls" for name, ms, n in top),
+          flush=True)
+
+    (want, _), routes_r = routed(routes, lambda: model.decode_step(engine.params, cache, tokens, impl="ref"))
+    flips, n_choices = route_flips(routes_k, routes_r)
+    rel = (got[live] - want[live]).abs().max().item() / want[live].abs().max().item()
+    print(f"  mixtral decode step logits vs ref: max abs err / max |ref| = {rel:.3e} (tol {LOGITS_TOL}); "
+          f"router choices that differ: {flips} of {n_choices} (token, layer) pairs", flush=True)
+    check(bool(torch.isfinite(got).all()), "mixtral: non-finite decode logits")
+    check(flips > 0 or rel <= LOGITS_TOL, "mixtral decode logits disagree with ref with the same routing")
+    captured.clear()
+    del cache, got, want
+
+    # one prefill of a 4160-token prompt: every flash call held to the plain version
+    toks = torch.tensor([requests[0].prompt], dtype=torch.long, device=dev)
+    restore = checked_attention(layer_errs)
+    try:
+        (lk, _), routes_k = routed(routes, lambda: model.prefill(engine.params, toks))
+    finally:
+        restore()
+    check(len(layer_errs["flash_attention"]) == cfg.n_layers, f"{len(layer_errs['flash_attention'])} flash calls")
+    worst, rel, ok = (max(e) for e in zip(*layer_errs["flash_attention"]))
+    print(f"  mixtral prefill (Sq=Sk={toks.shape[1]}, window {window}): flash kernel vs plain on each of its "
+          f"{cfg.n_layers} layers' inputs, max abs err {worst:.3e}, row err {rel:.3e} (tol {ROW_TOL} in bf16)",
+          flush=True)
+    check(all(e[2] for e in layer_errs["flash_attention"]), "mixtral: a layer's flash kernel disagrees with plain")
+    hold_moe(routes["first"], cfg, "prefill")
+    (lr, _), routes_r = routed(routes, lambda: model.prefill(engine.params, toks, impl="ref"))
+    flips, n_choices = route_flips(routes_k, routes_r)
+    rel = (lk - lr).abs().max().item() / lr.abs().max().item()
+    print(f"  mixtral prefill logits vs ref: max abs err / max |ref| = {rel:.3e} (tol {LOGITS_TOL}); "
+          f"router choices that differ: {flips} of {n_choices} (token, layer) pairs", flush=True)
+    check(bool(torch.isfinite(lk).all()), "mixtral: non-finite prefill logits")
+    check(flips > 0 or rel <= LOGITS_TOL, "mixtral prefill logits disagree with ref with the same routing")
+    n_tokens = sum(len(c.tokens) for c in done.values())
+    return dict(launches=launches, tok_s=n_tokens / wall, peak_gib=peak / 2**30,
+                decode_step_ms=statistics.median(decode_s) * 1e3, step_span_ms=span_ms,
+                step_busy_ms=busy_ms, expert_bound_ms=bound)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -572,6 +1080,7 @@ def main() -> None:
                      (dict(Sq=100, Sk=100, H=4, K=2, D=16, window=48), "head_dim 16, window 48"),
                      (dict(B=2, Sq=200, Sk=200, H=16, K=4, D=128), "head_dim 128")):
         errs["flash_attention"] = max(errs["flash_attention"], check_flash(*flash_case(gen, **kw), name))
+    wide_head_cases(gen, errs)
 
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB > 50 MB L2
     p_args, p_win = paged_main
@@ -624,6 +1133,9 @@ def main() -> None:
     print(f"  timer floor: one kernel that adds 1 to one element {time_ms(lambda: one.add_(1)):.4f} ms, "
           f"L2 flushed {time_ms(lambda: one.add_(1), flush=flush):.4f} ms", flush=True)
     sweep(gen, flush)
+    rows = shape_rows(gen, flush)
+    for name in errs:
+        errs[name] = max([errs[name]] + [r["max_abs_err"] for r in rows[name].values()])
     del flush, dk, dv
 
     # 4. the engine at full width
@@ -631,9 +1143,9 @@ def main() -> None:
     check((cfg.n_layers, cfg.d_model, cfg.vocab_size) == (16, 2048, 128256), f"unexpected config {cfg}")
     model = build_model(cfg)
     t0 = time.perf_counter()
-    params = model.init(seed=0, device="cuda")
+    params = model.init(seed=0, device="cuda", dtype=cfg.cdtype())
     engine = ServingEngine(cfg, params, max_slots=SLOTS, n_pages=PAGES, device="cuda")
-    del params  # the engine holds its own serving copy
+    del params  # the engine holds the serving weights
     torch.cuda.synchronize()
     print(f"engine: llama3_2-1b {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
           f"pool {tuple(engine.pool_k.shape)} x2 {engine.pool_k.dtype}, built in "
@@ -674,37 +1186,37 @@ def main() -> None:
           f"peak memory {peak / 2**30:.2f} GiB", flush=True)
 
     # the engine's own batched decode step, captured mid-run, against the
-    # impl="ref" oracles on the same pages, tables, lengths and tokens
-    check(bool(captured), f"decode step {CAPTURE_STEP} was never reached")
-    cache, tokens, live = captured["cache"], captured["tokens"], captured["live"]
-    want, _ = model.decode_step(engine.params, cache, tokens, impl="ref")
-    got, want = captured["logits"][live], want[live]  # an idle slot's logits are never read
-    rel_e = (got - want).abs().max().item() / want.abs().max().item()
-    print(f"engine decode step {CAPTURE_STEP} ({int(live.sum())} live rows) vs ref: "
-          f"max abs err / max |ref| = {rel_e:.3e} (tol {LOGITS_TOL})", flush=True)
-    check(bool(torch.isfinite(got).all()) and rel_e <= LOGITS_TOL, "engine decode disagrees with ref")
-    del captured, cache
-
-    # the same model through the impl="ref" oracles: one prefill, one decode
-    toks = torch.tensor([requests[0].prompt], dtype=torch.long, device=dev)
-    lk, ck = model.prefill(engine.params, toks)
-    lr, cr = model.prefill(engine.params, toks, impl="ref")
-    rel = (lk - lr).abs().max().item() / lr.abs().max().item()
-    print(f"prefill logits vs ref: max abs err / max |ref| = {rel:.3e} (tol {LOGITS_TOL})", flush=True)
-    check(bool(torch.isfinite(lk).all()) and rel <= LOGITS_TOL, "prefill logits disagree with ref")
-    nxt = lk.argmax(-1)
-    clone = lambda c: {"kv": {k: v.clone() for k, v in c["kv"].items()}, "lengths": c["lengths"].clone()}  # noqa: E731
-    dk_logits, _ = model.decode_step(engine.params, clone(ck), nxt)
-    dr_logits, _ = model.decode_step(engine.params, clone(ck), nxt, impl="ref")
-    rel_d = (dk_logits - dr_logits).abs().max().item() / dr_logits.abs().max().item()
-    print(f"decode logits vs ref: max abs err / max |ref| = {rel_d:.3e} (tol {LOGITS_TOL})", flush=True)
-    check(bool(torch.isfinite(dk_logits).all()) and rel_d <= LOGITS_TOL, "decode logits disagree with ref")
+    # impl="ref" oracles on the same pages, tables, lengths and tokens; then
+    # the same model through the oracles: one prefill, one decode
+    hold_to_ref(model, engine.params, captured, CAPTURE_STEP, requests[0].prompt, dev)
 
     # 5. blob mode
-    launches_blob = blob_phase(cfg, engine, done, host_rec, card, (flash_attention_cuda, paged_attention_cuda))
+    kernels = (flash_attention_cuda, paged_attention_cuda)
+    launches_blob = blob_phase(cfg, engine, done, host_rec, card, kernels)
     print(f"blob-mode launches {launches_blob}", flush=True)
+    del engine, model, done, host_rec, captured
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 6. results
+    # 6. h2o-danube-3-4b: head dim 120
+    danube = get_config("h2o-danube-3-4b")
+    check((danube.n_layers, danube.d_model, danube.head_dim, danube.d_ff) == (24, 3840, 120, 10240),
+          f"unexpected config {danube}")
+    launches_danube = danube_phase(danube, dev, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. mixtral-8x7b: the MoE family and the sliding window at full width
+    mixtral = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=MIXTRAL_LAYERS)
+    check((mixtral.d_model, mixtral.n_heads, mixtral.n_kv_heads, mixtral.head_dim, mixtral.d_ff,
+           mixtral.n_experts, mixtral.top_k, mixtral.vocab_size, mixtral.sliding_window, mixtral.rope_theta,
+           mixtral.kv_page_tokens) == (4096, 32, 8, 128, 14336, 8, 2, 32000, WINDOW, 1e6, 64),
+          f"unexpected config {mixtral}")
+    check(MIXTRAL_PROMPT == WINDOW + mixtral.kv_page_tokens, "the prompt is the window plus one page")
+    mixtral = mixtral_phase(mixtral, dev, kernels)
+    print(f"mixtral: {json.dumps(mixtral)}", flush=True)
+
+    # 8. results
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:79"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -716,7 +1228,9 @@ def main() -> None:
             "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
             "launches": launches[name], "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "launches_blob": launches_blob[name], **grids[name],
+            "library_ms": t["library_ms"], "launches_blob": launches_blob[name],
+            "launches_danube": launches_danube[name], "launches_mixtral": mixtral["launches"][name],
+            "shapes": rows[name], **grids[name],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """The one way weights cross from the JAX package to the port.
 
-:func:`params_from_jax` takes the JAX parameter pytree of a dense decoder --
-as nested dicts of numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``
-of ``build_model(cfg).init(PRNGKey(0))[0]`` -- and returns the port's params
+:func:`params_from_jax` takes the JAX parameter pytree of a decoder (the
+``dense``, ``moe`` and ``vlm`` families) -- as nested dicts of numpy arrays,
+e.g. ``jax.tree.map(np.asarray, params)`` of
+``build_model(cfg).init(PRNGKey(0))[0]`` -- and returns the port's params
 with the same structure, shapes, dtypes and values. No JAX is imported here.
 """
 
@@ -15,12 +16,19 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import PORTED
 
 
 def param_shapes(cfg: ModelConfig) -> Dict:
-    """The shape tree of a dense decoder's params (layer leaves stacked)."""
+    """The shape tree of a decoder's params (layer leaves stacked). A MoE
+    block's ffn is the f32 router ``(L, d, E)`` and the experts stacked
+    ``(L, E, ...)``."""
     L, d, H, K = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads
-    hd, f, V = cfg.head_dim, cfg.d_ff, cfg.padded_vocab
+    hd, f, V, E = cfg.head_dim, cfg.d_ff, cfg.padded_vocab, cfg.n_experts
+    if cfg.is_moe:
+        ffn = {"router": (L, d, E), "w1": (L, E, d, f), "wg": (L, E, d, f), "w2": (L, E, f, d)}
+    else:
+        ffn = {"wi": (L, d, f), "wg": (L, d, f), "wo": (L, f, d)}
     return {
         "embed": {"table": (V, d)},
         "blocks": {
@@ -28,7 +36,7 @@ def param_shapes(cfg: ModelConfig) -> Dict:
             "attn": {"wq": (L, d, H, hd), "wk": (L, d, K, hd), "wv": (L, d, K, hd),
                      "wo": (L, H, hd, d)},
             "ln2": (L, d),
-            "ffn": {"wi": (L, d, f), "wg": (L, d, f), "wo": (L, f, d)},
+            "ffn": ffn,
         },
         "ln_f": (d,),
     }
@@ -55,7 +63,7 @@ def _convert(tree, shapes, device, path: Tuple[str, ...]):
 
 def params_from_jax(params_np, cfg: ModelConfig, device="cuda"):
     """JAX param pytree (numpy leaves) -> the port's params on ``device``."""
-    if cfg.family != "dense":
+    if cfg.family not in PORTED:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1, item 8)")
     device = resolve_device(device)
     return _convert(params_np, param_shapes(cfg), device, ())

@@ -42,6 +42,16 @@
 // (p = hi + lo to ~2^-16 relative), each multiplied by V (ldmatrix.trans)
 // on the tensor cores into the f32 accumulator.
 //
+// Head dims: any D that is a multiple of 8 up to 128 (a row is whole 16-byte
+// chunks). The bf16 kernel is compiled for the padded widths DP = 16, 32,
+// 64, 128 and takes the real D at run time: it stages DP columns of q, k
+// and v in shared memory, the columns [D, DP) zero-filled by cp.async with
+// a source size of 0 (no branch, no read), so they add 0 to Q K^T and give
+// 0 in O, and it writes back only the D real columns. D = 120 runs at DP =
+// 128; D = 80 at DP = 128 (37.5% of its products are on zeros). A D equal
+// to its DP runs an instantiation with D a compile-time constant (PAD
+// false), which keeps the bounds checks and index products out of it.
+//
 // f32 (flash_fwd_f32_kernel): the CUDA-core loop, f32 FMA throughout; its
 // 2e-5 tolerance rules out TF32 and bf16 tensor cores. One CTA per
 // (16-row q-block, head, batch row); tiles staged in shared memory, K rows
@@ -238,19 +248,22 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
   lo = as_u32(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
 }
 
-template <int D>
+template <int DP, bool PAD>
 __global__ void __launch_bounds__(kTcMaxHeads * 32) flash_fwd_tc_kernel(
     const __nv_bfloat16* __restrict__ q,  // (B, Sq, H, D)
     const __nv_bfloat16* __restrict__ k,  // (B, Sk, K, D)
     const __nv_bfloat16* __restrict__ v,  // (B, Sk, K, D)
     __nv_bfloat16* __restrict__ out,      // (B, Sq, H, D)
-    int Sq, int Sk, int H, int K, int causal, int window, int q_start, float scale_log2) {
+    int Sq, int Sk, int H, int K, int d_arg, int causal, int window, int q_start,
+    float scale_log2) {
   constexpr int BQ = kTcBQ, BK = kTcBK;
-  constexpr int LD = D + 8;    // shared row stride in bf16: conflict-free ldmatrix
-  constexpr int CH = D / 8;    // 16-byte chunks per row
-  constexpr int NKS = D / 16;  // k-steps of S = Q K^T over the head dim
-  constexpr int NST = BK / 8;  // n-tiles of S over the keys
-  constexpr int NDT = D / 8;   // n-tiles of O over the head dim
+  constexpr int LD = DP + 8;    // shared row stride in bf16: conflict-free ldmatrix
+  constexpr int CH = DP / 8;    // 16-byte chunks per staged row
+  constexpr int NKS = DP / 16;  // k-steps of S = Q K^T over the head dim
+  constexpr int NST = BK / 8;   // n-tiles of S over the keys
+  constexpr int NDT = DP / 8;   // n-tiles of O over the head dim
+  const int D = PAD ? d_arg : DP;  // the row's real width
+  const int ch = D / 8;            // chunks that lie inside a row: the rest are zero
   const int HP = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -277,9 +290,9 @@ __global__ void __launch_bounds__(kTcMaxHeads * 32) flash_fwd_tc_kernel(
     const int r = (i / CH) % BQ;
     const int hp = i / (CH * BQ);
     const int row = q0 + r;
-    const bool ok = row < Sq;
-    cp_async16(q_s + (hp * BQ + r) * LD + c * 8,
-               q + (((size_t)b * Sq + (ok ? row : 0)) * H + h_first + hp) * D + c * 8, ok);
+    const bool ok = row < Sq && (!PAD || c < ch);
+    const size_t off = (((size_t)b * Sq + (ok ? row : 0)) * H + h_first + hp) * D;
+    cp_async16(q_s + (hp * BQ + r) * LD + c * 8, q + off + (ok ? c * 8 : 0), ok);
   }
   auto load_kv = [&](int tile) {
     const int k0 = k_begin + tile * BK;
@@ -289,8 +302,8 @@ __global__ void __launch_bounds__(kTcMaxHeads * 32) flash_fwd_tc_kernel(
       const int c = i % CH;
       const int j = i / CH;
       const int key = k0 + j;
-      const bool ok = key < Sk;
-      const size_t off = (((size_t)b * Sk + (ok ? key : 0)) * K + kvh) * D + c * 8;
+      const bool ok = key < Sk && (!PAD || c < ch);
+      const size_t off = (((size_t)b * Sk + (ok ? key : 0)) * K + kvh) * D + (ok ? c * 8 : 0);
       cp_async16(ks + j * LD + c * 8, k + off, ok);
       cp_async16(vs + j * LD + c * 8, v + off, ok);
     }
@@ -414,8 +427,9 @@ __global__ void __launch_bounds__(kTcMaxHeads * 32) flash_fwd_tc_kernel(
     __nv_bfloat16* orow = out + (((size_t)b * Sq + row) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < NDT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(o_acc[j][2 * i] * inv, o_acc[j][2 * i + 1] * inv);
+      if (!PAD || j < ch)  // n-tile j is columns j*8 + [0, 8): the real ones only
+        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * t) =
+            __floats2bfloat162_rn(o_acc[j][2 * i] * inv, o_acc[j][2 * i + 1] * inv);
   }
 }
 
@@ -436,16 +450,16 @@ int launch_f32(const float* q, const float* k, const float* v, float* out, int B
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DP, bool PAD>
 int launch_tc(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-              __nv_bfloat16* out, int B, int Sq, int Sk, int H, int K, int causal, int window,
-              int q_start, float scale, int heads, cudaStream_t stream) {
+              __nv_bfloat16* out, int B, int Sq, int Sk, int H, int K, int D, int causal,
+              int window, int q_start, float scale, int heads, cudaStream_t stream) {
   const size_t smem =
-      sizeof(__nv_bfloat16) * (D + 8) * ((size_t)heads * kTcBQ + 2 * kTcStages * kTcBK);
-  if (int err = set_smem((const void*)flash_fwd_tc_kernel<D>, smem)) return err;
+      sizeof(__nv_bfloat16) * (DP + 8) * ((size_t)heads * kTcBQ + 2 * kTcStages * kTcBK);
+  if (int err = set_smem((const void*)flash_fwd_tc_kernel<DP, PAD>, smem)) return err;
   const dim3 grid((Sq + kTcBQ - 1) / kTcBQ, H / heads, B);
-  flash_fwd_tc_kernel<D><<<grid, 32 * heads, smem, stream>>>(
-      q, k, v, out, Sq, Sk, H, K, causal, window, q_start, scale * 1.4426950408889634f);
+  flash_fwd_tc_kernel<DP, PAD><<<grid, 32 * heads, smem, stream>>>(
+      q, k, v, out, Sq, Sk, H, K, D, causal, window, q_start, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -455,8 +469,8 @@ extern "C" {
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
 // window <= 0 means no window. heads_per_cta (bf16 only): query heads of one
-// kv-head per CTA, in {1, 2, 4} and dividing H/K; bf16 takes D in {16, 32,
-// 64, 128}. Returns cudaGetLastError() after the launch (0 on success), -1
+// kv-head per CTA, in {1, 2, 4} and dividing H/K. D is a multiple of 8 in
+// [8, 128]. Returns cudaGetLastError() after the launch (0 on success), -1
 // for a dtype this file does not instantiate, -2 for a shape it does not
 // take.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
@@ -464,7 +478,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                         int window, int q_start, float scale, int dtype,
                         int heads_per_cta, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || Sq < 1 || K < 1 || H % K != 0) return -2;
+  if (B < 1 || Sq < 1 || K < 1 || H % K != 0 || D < 8 || D > 128 || D % 8 != 0) return -2;
   if (dtype == 0)
     return launch_f32(static_cast<const float*>(q), static_cast<const float*>(k),
                       static_cast<const float*>(v), static_cast<float*>(out), B, Sq, Sk, H, K, D,
@@ -476,14 +490,16 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
   auto kb = static_cast<const __nv_bfloat16*>(k);
   auto vb = static_cast<const __nv_bfloat16*>(v);
   auto ob = static_cast<__nv_bfloat16*>(out);
-#define REPRO_LAUNCH(DIM) \
-  return launch_tc<DIM>(qb, kb, vb, ob, B, Sq, Sk, H, K, causal, window, q_start, scale, hp, s)
-  if (D == 16) REPRO_LAUNCH(16);
-  if (D == 32) REPRO_LAUNCH(32);
-  if (D == 64) REPRO_LAUNCH(64);
-  if (D == 128) REPRO_LAUNCH(128);
+#define REPRO_LAUNCH(DP)                                                                          \
+  return D == DP ? launch_tc<DP, false>(qb, kb, vb, ob, B, Sq, Sk, H, K, D, causal, window, q_start, \
+                                        scale, hp, s)                                              \
+                 : launch_tc<DP, true>(qb, kb, vb, ob, B, Sq, Sk, H, K, D, causal, window, q_start,  \
+                                       scale, hp, s)
+  if (D <= 16) REPRO_LAUNCH(16);
+  if (D <= 32) REPRO_LAUNCH(32);
+  if (D <= 64) REPRO_LAUNCH(64);
+  REPRO_LAUNCH(128);
 #undef REPRO_LAUNCH
-  return -2;
 }
 
 }  // extern "C"

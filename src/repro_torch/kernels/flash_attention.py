@@ -4,8 +4,9 @@
 Counterpart of :func:`repro.kernels.flash_attention.flash_attention_pallas`,
 without its divisibility assert: any ``Sq`` and ``Sk`` work.
 :func:`flash_attention_cuda` launches the kernel for CUDA tensors and takes
-the plain version only for CPU tensors. bf16 runs on the tensor cores
-(head dims 16, 32, 64, 128), f32 on the CUDA cores (any head dim);
+the plain version only for CPU tensors. Both take head dims that are
+multiples of 8 up to 128. bf16 runs on the tensor cores, compiled for the
+padded widths 16, 32, 64, 128 (:func:`tc_width`); f32 on the CUDA cores;
 :func:`launch_plan` gives the grid either path launches.
 """
 
@@ -18,12 +19,13 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.paged_attention import check_head_dim
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _BQ, _BK = 16, 64  # query rows per warp (bf16) or CTA (f32), keys per tile
 _STAGES = 3  # K/V tiles in the bf16 kernel's shared-memory ring
-TC_HEAD_DIMS = (16, 32, 64, 128)  # head dims the bf16 tensor-core path is compiled for
+_TC_WIDTHS = (16, 32, 64, 128)  # padded head dims the bf16 tensor-core path is compiled for
 
 
 def flash_attention_plain(
@@ -68,6 +70,12 @@ class LaunchPlan(NamedTuple):
     smem_bytes: int
 
 
+def tc_width(D: int) -> int:
+    """The padded width the bf16 kernel stages a row at: the least of 16,
+    32, 64, 128 at or above ``D`` (columns past ``D`` are zero-filled)."""
+    return next(w for w in _TC_WIDTHS if w >= D)
+
+
 def launch_plan(B: int, Sq: int, H: int, K: int, D: int, dtype: torch.dtype,
                 heads_per_cta: Optional[int] = None) -> LaunchPlan:
     """bf16: a CTA holds 16 query rows of ``heads_per_cta`` heads that share
@@ -83,7 +91,8 @@ def launch_plan(B: int, Sq: int, H: int, K: int, D: int, dtype: torch.dtype,
         smem = 4 * (2 * _BQ * D + _BK * (D + 1) + _BK * D + _BQ * _BK + 3 * _BQ)
         return LaunchPlan(1, (nq, H, B), 128, smem)
     hp = heads_per_cta or next(c for c in (4, 2, 1) if (H // K) % c == 0)
-    return LaunchPlan(hp, (nq, H // hp, B), 32 * hp, 2 * (D + 8) * (hp * _BQ + 2 * _STAGES * _BK))
+    smem = 2 * (tc_width(D) + 8) * (hp * _BQ + 2 * _STAGES * _BK)
+    return LaunchPlan(hp, (nq, H // hp, B), 32 * hp, smem)
 
 
 def _lib():
@@ -126,8 +135,8 @@ def flash_attention_cuda(
     _check(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(), "inputs must be contiguous")
     _check(window is None or window > 0, "window must be positive")
     _check(Sq > 0 and B > 0, "empty q")
+    check_head_dim(D, "flash_attention_cuda")
     if q.dtype == torch.bfloat16:
-        _check(D in TC_HEAD_DIMS, f"bf16 head_dim {D} not in {TC_HEAD_DIMS}")
         _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v)), "q, k, v must be 16-byte aligned")
     plan = launch_plan(B, Sq, H, K, D, q.dtype)
     _check(plan.smem_bytes <= 227 * 1024, f"head_dim {D} needs {plan.smem_bytes} bytes of shared memory")

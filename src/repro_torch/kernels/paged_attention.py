@@ -10,7 +10,9 @@ The kernel splits each (sequence, kv-head) over its valid pages. How, is
 mirrored here in plain Python for the CPU tests: :func:`launch_plan` (grid,
 splits and scratch from static shapes), :func:`valid_pages` and
 :func:`page_shares` (which pages a split takes) and :func:`merge_partials`
-(how the splits' partial statistics are merged).
+(how the splits' partial statistics are merged); :func:`padded_width` and
+:func:`smem_bytes` give the row width the kernel is compiled for and the
+shared memory it asks for.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernel is compiled for
+MAX_HEAD_DIM = 128  # the kernels take head dims that are multiples of 8 up to this
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -149,6 +151,32 @@ def merge_partials(o_parts: torch.Tensor, m_parts: torch.Tensor, l_parts: torch.
     return (o_parts * a[..., None]).sum(dim=0), m, (l_parts * a).sum(dim=0)
 
 
+def padded_width(D: int, kv_itemsize: int) -> int:
+    """The row width the kernel is instantiated for at head dim ``D``: a
+    lane loads N = 16 / itemsize elements, a row takes the next power of two
+    of lanes at or above ``ceil(D / N)`` (at least 16 / N), so the width is
+    one of 16, 32, 64, 128. Lanes past ``D`` load nothing and add zero."""
+    n = 16 // kv_itemsize
+    lanes = 16 // n
+    while lanes * n < D:
+        lanes *= 2
+    return lanes * n
+
+
+def smem_bytes(R: int, head_chunk: int, width: int) -> int:
+    """Dynamic shared memory of one CTA: the row's valid page ids and
+    positions (2 int32 per table entry) and each warp's (o, m, l) partials
+    of ``head_chunk`` heads, staged at the padded ``width``."""
+    return 8 * R + 4 * 4 * head_chunk * (width + 2)
+
+
+def check_head_dim(D: int, who: str) -> None:
+    """Both kernels take head dims that are multiples of 8 up to 128 (whole
+    16-byte bf16 rows); raise ``ValueError`` for any other."""
+    if not (D % 8 == 0 and 8 <= D <= MAX_HEAD_DIM):
+        raise ValueError(f"{who}: head_dim {D} is not a multiple of 8 in [8, {MAX_HEAD_DIM}]")
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -215,11 +243,11 @@ def paged_attention_cuda(
            "tables, page_pos and lengths must be int32")
     _check(all(t.is_contiguous() for t in tensors), "inputs must be contiguous")
     _check(window is None or window > 0, "window must be positive")
-    _check(D in HEAD_DIMS, f"head_dim {D} not in {HEAD_DIMS}")
+    check_head_dim(D, "paged_attention_cuda")
     _check(pool_k.data_ptr() % 16 == 0 and pool_v.data_ptr() % 16 == 0,
            "pools must be 16-byte aligned")
     plan = launch_plan(B, H, K, D, R, _sm_count(q.device.index))
-    smem = 8 * R + 4 * 4 * plan.head_chunk * (D + 2)
+    smem = smem_bytes(R, plan.head_chunk, padded_width(D, pool_k.element_size()))
     _check(smem <= 227 * 1024, f"R={R}, D={D} need {smem} bytes of shared memory")
     out = launch(q, pool_k, pool_v, tables, page_pos, lengths, window, page_offset, plan)
     paged_attention_cuda.launches += 1

@@ -57,6 +57,16 @@ PORT_KERNELS = ("paged_split_kernel", "flash_fwd_tc_kernel", "flash_fwd_f32_kern
 SLOTS, PAGES = 8, 512
 
 
+def prefix_requests(cfg, n: int, prefix_len: int, tail_len: int, new: int):
+    """``n`` greedy requests of ``new`` tokens: one shared ``prefix_len``-token
+    prompt prefix, then each request's own ``tail_len``-token tail, all drawn
+    from one generator seeded with 0; ids 0 to n - 1."""
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab_size, prefix_len).tolist()
+    return [Request(i, prefix + rng.integers(0, cfg.vocab_size, tail_len).tolist(), max_new_tokens=new)
+            for i in range(n)]
+
+
 def cell_requests(cfg, *, smoke: bool = False, bursts: int = 1):
     """The cell's burst: 16 requests, each a shared 128-token system prompt
     plus its own 64-token tail, 32 new tokens, greedy (``smoke``: 6 requests
@@ -64,10 +74,7 @@ def cell_requests(cfg, *, smoke: bool = False, bursts: int = 1):
     ``bursts`` > 1, the tails of that many bursts in a row, drawn from the
     same generator behind the same system prompt, ids numbered on."""
     n, system_len, tail_len, new = (6, 16, 8, 4) if smoke else (16, 128, 64, 32)
-    rng = np.random.default_rng(0)
-    system = rng.integers(0, cfg.vocab_size, system_len).tolist()
-    return [Request(i, system + rng.integers(0, cfg.vocab_size, tail_len).tolist(), max_new_tokens=new)
-            for i in range(n * bursts)]
+    return prefix_requests(cfg, n * bursts, system_len, tail_len, new)
 
 
 def warm_up(engine: ServingEngine) -> None:
@@ -154,7 +161,7 @@ def _per_decode_step(events, n_steps: int) -> dict:
 
 def run(cfg, dev: torch.device, *, requests, trace: bool):
     model = build_model(cfg)
-    params = model.init(seed=0, device=dev)
+    params = model.init(seed=0, device=dev, dtype=cfg.cdtype())
     engine = ServingEngine(cfg, params, max_slots=SLOTS, n_pages=PAGES, device=dev)
     del params
     warm_up(engine)

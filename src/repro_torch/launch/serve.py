@@ -31,7 +31,7 @@ def main(argv=None):
     if args.smoke:
         cfg = cfg.smoke()
     model = build_model(cfg)
-    params = model.init(seed=0, device=args.device)
+    params = model.init(seed=0, device=args.device, dtype=cfg.cdtype())
     engine = ServingEngine(cfg, params, max_slots=args.slots, n_pages=512, device=args.device)
 
     rng = np.random.default_rng(0)

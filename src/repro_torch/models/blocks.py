@@ -1,6 +1,6 @@
-"""Dense pre-norm transformer block, the counterpart of the dense branch of
-:mod:`repro.models.blocks`. The JAX package's ``lax.scan`` over stacked
-layers becomes a Python loop in :mod:`repro_torch.models.lm`."""
+"""Pre-norm transformer block, dense or MoE, the counterpart of the dense /
+moe branch of :mod:`repro.models.blocks`. The JAX package's ``lax.scan``
+over stacked layers becomes a Python loop in :mod:`repro_torch.models.lm`."""
 
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import mlp, rmsnorm
 from repro_torch.models.modules import dense_init
@@ -16,28 +17,40 @@ from repro_torch.models.modules import dense_init
 
 def block_init(gen: torch.Generator, cfg: ModelConfig):
     d, f, dt = cfg.d_model, cfg.d_ff, cfg.pdtype()
-    return {
+    params = {
         "ln1": torch.ones((d,), dtype=dt, device=gen.device),
         "attn": attn.attention_init(gen, cfg),
         "ln2": torch.ones((d,), dtype=dt, device=gen.device),
-        "ffn": {
+    }
+    if cfg.is_moe:
+        params["ffn"] = moe_mod.moe_init(gen, cfg)
+    else:
+        params["ffn"] = {
             "wi": dense_init(gen, d, (f,), dt),
             "wg": dense_init(gen, d, (f,), dt),
             "wo": dense_init(gen, f, (d,), dt),
-        },
-    }
+        }
+    return params
+
+
+def _ffn(params, h: torch.Tensor, cfg: ModelConfig):
+    """The feed-forward half: (out, aux loss), aux 0 for a dense block."""
+    if cfg.is_moe:
+        return moe_mod.moe_ffn(params, h, cfg)
+    return mlp(params, h, cfg), torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def block_apply(
     params, x: torch.Tensor, cfg: ModelConfig, *, return_kv: bool = False,
     impl: Optional[str] = None,
 ):
-    """Full-sequence block (prefill). Returns x, or (x, (k, v))."""
+    """Full-sequence block (prefill). Returns (x, aux), or (x, aux, (k, v))."""
     h = rmsnorm(x, params["ln1"])
     a, kv = attn.attention_train(params["attn"], h, cfg, return_kv=True, impl=impl)
     x = x + a
-    x = x + mlp(params["ffn"], rmsnorm(x, params["ln2"]), cfg)
-    return (x, kv) if return_kv else x
+    f, aux = _ffn(params["ffn"], rmsnorm(x, params["ln2"]), cfg)
+    x = x + f
+    return (x, aux, kv) if return_kv else (x, aux)
 
 
 def block_decode(
@@ -47,4 +60,5 @@ def block_decode(
     h = rmsnorm(x, params["ln1"])
     a, cache = attn.attention_decode(params["attn"], h, cache, lengths, cfg, impl=impl)
     x = x + a
-    return x + mlp(params["ffn"], rmsnorm(x, params["ln2"]), cfg), cache
+    f, _ = _ffn(params["ffn"], rmsnorm(x, params["ln2"]), cfg)
+    return x + f, cache

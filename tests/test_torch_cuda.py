@@ -50,6 +50,13 @@ PAGED_CASES = [
     (3, 512, 16, 32, 2, 64, None, "float32"),  # 16 heads per kv-head: two chunks of 8
     (3, 300, 16, 4, 2, 16, None, "bfloat16"),  # head_dim 16: 2 lanes a row
     (2, 300, 16, 8, 2, 128, 77, "float32"),  # f32 head_dim 128: a whole warp a row
+    (3, 256, 64, 32, 8, 120, None, "bfloat16"),  # h2o-danube-3-4b: 15 of 16 lanes a row
+    (3, 256, 64, 32, 8, 120, 100, "float32"),  # 30 of 32 lanes, window
+    (3, 256, 64, 32, 32, 80, None, "bfloat16"),  # zamba2-2.7b: 10 of 16 lanes
+    (3, 256, 64, 32, 32, 80, 77, "float32"),  # 20 of 32 lanes, window
+    (3, 64, 16, 4, 2, 8, None, "bfloat16"),  # head_dim 8: one lane of two
+    # mixtral-8x7b decode: rows of 4161-4192 tokens under its 4096-token window
+    (9, 4192, 64, 32, 8, 128, 4096, "bfloat16", (4161, 4165, 4170, 4176, 4180, 4185, 4190, 4192, 0)),
 ]
 
 
@@ -98,6 +105,12 @@ FLASH_CASES = [
     (2, 100, 150, 8, 2, 64, False, None, 0, "bfloat16"),  # non-causal Sq != Sk
     (2, 200, 200, 16, 4, 128, True, None, 0, "bfloat16"),  # 4 heads a CTA, > 48 KB smem
     (1, 256, 256, 8, 8, 128, True, 100, 0, "bfloat16"),  # window, one head per kv-head
+    (1, 200, 200, 32, 8, 120, True, None, 0, "bfloat16"),  # h2o-danube-3-4b: staged at 128
+    (1, 200, 200, 32, 8, 120, True, 64, 0, "float32"),
+    (2, 130, 130, 32, 32, 80, True, None, 0, "bfloat16"),  # zamba2-2.7b: staged at 128
+    (1, 130, 130, 8, 8, 80, True, 48, 0, "float32"),
+    (1, 100, 100, 4, 2, 24, True, None, 0, "bfloat16"),  # head_dim 24: staged at 32
+    (1, 4160, 4160, 32, 8, 128, True, 4096, 0, "bfloat16"),  # mixtral-8x7b prefill, window cuts
 ]
 
 
@@ -125,6 +138,45 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         flash_attention_cuda(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
     with pytest.raises(ValueError, match="device"):
         flash_attention_cuda(q, q.cpu(), q)
+
+
+@pytest.mark.parametrize("D", [100, 12, 136])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wrappers_reject_head_dims_not_a_multiple_of_8(dev, D, dtype):
+    dt = getattr(torch, dtype)
+    q = torch.zeros((1, 32, 2, D), device=dev, dtype=dt)
+    n_flash, n_paged = flash_attention_cuda.launches, paged_attention_cuda.launches
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention_cuda(q, q, q)
+    pool = torch.zeros((4, 16, 2, D), device=dev, dtype=dt)
+    t = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        paged_attention_cuda(q[:, 0], pool, pool, t, t, t[:, 0].contiguous())
+    assert (flash_attention_cuda.launches, paged_attention_cuda.launches) == (n_flash, n_paged)
+
+
+def test_moe_layer_on_the_card_never_syncs_the_host(dev):
+    """The MoE dispatch keeps every index on the device: no host
+    synchronisation (a CUDA graph can capture the decode step later), and
+    the card's f32 result is the CPU's within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("mixtral-8x7b").smoke()
+    params = moe.moe_init(torch.Generator().manual_seed(0), cfg)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 24, cfg.d_model), dtype=np.float32))
+    want, want_aux = moe.moe_ffn(params, x, cfg)
+    on_card = {k: v.to(dev) for k, v in params.items()}
+    xd = x.to(dev)
+    moe.moe_ffn(on_card, xd, cfg)  # first call: cuBLAS set-up may synchronise
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, aux = moe.moe_ffn(on_card, xd, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    close(got, want, 1e-4)
+    close(aux, want_aux, 1e-5)
 
 
 # ------------------------------ blob mode ------------------------------

@@ -168,12 +168,12 @@ def test_online_softmax_combine_matches_jax():
 
 
 # ------------------------- split-K (flash-decoding) -------------------------
-def split_case(name):
+def split_case(name, D=32):
     """Inputs for the split-K contract: (q, pool_k, pool_v, tables, page_pos,
     lengths, window, page_offset, n_sm). ``n_sm`` is picked so that the
     launch plan gives S = 4 (3 for the ring)."""
     rng = np.random.default_rng(21)
-    T, H, K, D = 8, 8, 2, 32
+    T, H, K = 8, 8, 2
     if name == "serving":  # engine layout: own pages then sentinels; an inactive row
         B, R, P, off = 4, 6, 20, 0
         lengths = np.array([33, 0, 12, 47], np.int32)
@@ -244,6 +244,72 @@ def test_paged_split_shares_merge_to_pallas(name, dtype):
     dead = lengths == 0
     if dead.any():  # the all-sentinel row: o=0, l=0, m=-1e30 after the merge
         assert (o[dead] == 0).all() and (l[dead] == 0).all() and (m[dead] == NEG_INF).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [80, 120])
+def test_paged_split_shares_merge_to_pallas_wide_rows(D, dtype):
+    """The split-K contract at the head dims that are not a power of two
+    (zamba2's 80, h2o-danube's 120): the partials are (S, B, H, D) at the
+    real D, merged as at any other width."""
+    q, pool_k, pool_v, tables, page_pos, lengths, window, off, n_sm = split_case("serving", D)
+    B, H, _ = q.shape
+    P, T, K, _ = pool_k.shape
+    plan = tpa.launch_plan(B, H, K, D, tables.shape[1], n_sm)
+    assert plan.n_splits == 4 and plan.scratch_bytes == 4 * B * H * (D + 2) * 4
+    jq, tq = both(q, dtype)
+    jk, tk = both(pool_k, dtype)
+    jv, tv = both(pool_v, dtype)
+    tt, tp, tl = (torch.from_numpy(a) for a in (tables, page_pos, lengths))
+    per_split = tpa.split_tables(tt, tp, tl, T=T, P=P, n_splits=plan.n_splits, window=window)
+    parts = [paged_attention_plain(tq, tk, tv, t, tp, tl, window=window) for t in per_split]
+    o, m, l = tpa.merge_partials(*(torch.stack(x) for x in zip(*parts)))
+    want = paged_attention_pallas(jq, jk, jv, jnp.asarray(tables), jnp.asarray(page_pos),
+                                  jnp.asarray(lengths), window=window, interpret=True)
+    for g, w in zip((o, m, l), want):
+        close(g, w, TOL["paged"][dtype])
+
+
+# (B, S, T, H, K, D, window, dtype): h2o-danube-3-4b's head dim 120 (32
+# heads over 8 kv-heads) and zamba2-2.7b's 80 (as many kv-heads as heads)
+WIDE_PAGED_CASES = [
+    (2, 128, 16, 8, 2, 120, None, "bfloat16"),
+    (2, 128, 16, 8, 2, 120, 40, "float32"),
+    (2, 128, 16, 4, 4, 80, None, "float32"),
+    (2, 128, 16, 4, 4, 80, 40, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", WIDE_PAGED_CASES)
+def test_paged_plain_matches_pallas_wide_heads(case):
+    B, S, T, H, K, D, window, dtype = case
+    got, want = run_paged(*paged_inputs(8, B, S, T, H, K, D, dtype), dtype, window)
+    for g, w in zip(got, want):
+        close(g, w, TOL["paged"][dtype])
+
+
+def test_head_dims_the_kernels_take():
+    """Both kernels take every head dim that is a multiple of 8 up to 128:
+    the paged kernel pads a row to the next power-of-two count of 16-byte
+    lanes (a width of 16, 32, 64 or 128), the bf16 flash kernel to the next
+    of 16, 32, 64, 128; any other head dim raises ValueError."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    bf16, f32 = 2, 4
+    assert [tpa.padded_width(D, bf16) for D in (8, 16, 24, 64, 80, 120, 128)] == [16, 16, 32, 64, 128, 128, 128]
+    assert [tpa.padded_width(D, f32) for D in (8, 16, 24, 64, 80, 120, 128)] == [16, 16, 32, 64, 128, 128, 128]
+    assert [tfa.tc_width(D) for D in (8, 16, 40, 64, 80, 120, 128)] == [16, 16, 64, 64, 128, 128, 128]
+    # shared memory: table ids + positions, and 4 warps' partials at the padded width
+    plan = tpa.launch_plan(8, 32, 8, 120, 72, 132)
+    assert tpa.smem_bytes(72, plan.head_chunk, 128) == 8 * 72 + 16 * plan.head_chunk * 130
+    assert tfa.launch_plan(1, 128, 32, 8, 120, torch.bfloat16).smem_bytes == 2 * 136 * (4 * 16 + 6 * 64)
+    f32 = tfa.launch_plan(1, 128, 32, 8, 120, torch.float32)
+    assert f32.smem_bytes == 4 * (2 * 16 * 120 + 64 * 121 + 64 * 120 + 16 * 64 + 48)
+    for D in (8, 80, 120, 128):
+        tpa.check_head_dim(D, "x")
+    for D in (0, 4, 100, 121, 136):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            tpa.check_head_dim(D, "x")
 
 
 @pytest.mark.parametrize("n_valid,n_splits", [(4, 5), (13, 5), (0, 3), (2, 4), (7, 1)])
@@ -327,7 +393,16 @@ def flash_inputs(seed, B, Sq, Sk, H, K, D):
             rng.standard_normal((B, Sk, K, D), dtype=np.float32))
 
 
-@pytest.mark.parametrize("case", FLASH_CASES)
+# head dims 120 and 80 (h2o-danube-3-4b, zamba2-2.7b), causal and windowed
+WIDE_FLASH_CASES = [
+    (1, 128, 128, 8, 2, 120, True, None, "bfloat16"),
+    (1, 128, 128, 8, 2, 120, True, 48, "float32"),
+    (2, 128, 128, 4, 4, 80, True, None, "float32"),
+    (1, 128, 128, 4, 4, 80, True, 48, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES + WIDE_FLASH_CASES)
 def test_flash_plain_matches_pallas(case):
     B, Sq, Sk, H, K, D, causal, window, dtype = case
     (jq, tq), (jk, tk), (jv, tv) = (both(x, dtype) for x in flash_inputs(42, B, Sq, Sk, H, K, D))

@@ -1,6 +1,7 @@
-"""Port model vs the JAX package on ``get_config("llama3_2-1b").smoke()``:
-weight conversion, layers, prefill and decode logits; plus the port's import
-hygiene (it must never pull in JAX or the JAX package)."""
+"""Port model vs the JAX package on ``get_config("llama3_2-1b").smoke()``
+(and the MoE and vlm families on the mixtral-8x7b and chameleon-34b smoke
+configs): weight conversion, layers, prefill and decode logits; plus the
+port's import hygiene (it must never pull in JAX or the JAX package)."""
 
 import dataclasses
 import functools
@@ -30,10 +31,10 @@ from repro_torch.models.lm import build_model  # noqa: E402
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def configs(**overrides):
+def configs(arch="llama3_2-1b", **overrides):
     """The same smoke config in both packages."""
-    jcfg = dataclasses.replace(jax_get_config("llama3_2-1b").smoke(), **overrides)
-    tcfg = dataclasses.replace(get_config("llama3_2-1b").smoke(), **overrides)
+    jcfg = dataclasses.replace(jax_get_config(arch).smoke(), **overrides)
+    tcfg = dataclasses.replace(get_config(arch).smoke(), **overrides)
     return jcfg, tcfg
 
 
@@ -71,6 +72,68 @@ def test_params_from_jax_round_trip(param_dtype):
     assert [(jax.tree_util.keystr(p), s) for p, s in flat_t] == [
         (jax.tree_util.keystr(p), leaf.shape) for p, leaf in flat_j
     ]
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-235b-a22b", "chameleon-34b"])
+def test_params_from_jax_round_trip_moe_and_vlm(arch):
+    """MoE blocks cross with the router in f32 and the experts stacked
+    (L, E, ...); vlm (bf16 params for chameleon) as a dense decoder."""
+    jcfg, tcfg = configs(arch, param_dtype=jax_get_config(arch).param_dtype)
+    pnp = jax_params(jcfg)
+    tp = params_from_jax(pnp, tcfg, device="cpu")
+    for path, leaf in jax.tree_util.tree_flatten_with_path(pnp)[0]:
+        t = tp
+        for key in path:
+            t = t[key.key]
+        assert t.dtype == getattr(torch, leaf.dtype.name), path
+        back = t.view(torch.int16).numpy().view(leaf.dtype) if t.dtype == torch.bfloat16 else t.numpy()
+        np.testing.assert_array_equal(back, leaf)
+    if tcfg.is_moe:
+        L, E, d, f = tcfg.n_layers, tcfg.n_experts, tcfg.d_model, tcfg.d_ff
+        ffn = tp["blocks"]["ffn"]
+        assert ffn["router"].dtype == torch.float32 and tuple(ffn["router"].shape) == (L, d, E)
+        assert tuple(ffn["w1"].shape) == (L, E, d, f) and tuple(ffn["w2"].shape) == (L, E, f, d)
+    # the port's own init has the same tree, shapes and dtypes
+    init = build_model(tcfg).init(seed=0, device="cpu")
+    shapes = lambda tree: [(jax.tree_util.keystr(p), tuple(x.shape), str(x.dtype).split(".")[-1])  # noqa: E731
+                           for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]]
+    assert shapes(init) == shapes(pnp)
+
+
+@pytest.mark.parametrize("arch", ["llama3_2-1b", "mixtral-8x7b"])
+def test_init_in_serving_dtype_draws_the_same_values(arch):
+    """``init(dtype=...)`` stores the blocks in that dtype (the MoE router
+    kept in f32) with the default init's values cast, so serving_params
+    copies nothing; the default init itself still draws the same numbers
+    layer by layer."""
+    from repro_torch.models.lm import serving_params
+
+    _, tcfg = configs(arch, compute_dtype="bfloat16")
+    model = build_model(tcfg)
+    full = model.init(seed=0, device="cpu")
+    half = model.init(seed=0, device="cpu", dtype=torch.bfloat16)
+    torch.testing.assert_close(half["embed"]["table"], full["embed"]["table"], rtol=0, atol=0)
+    flat = lambda tree: jax.tree_util.tree_flatten_with_path(tree)[0]  # noqa: E731
+    for (path, h), (_, f) in zip(flat(half["blocks"]), flat(full["blocks"])):
+        want_dtype = torch.float32 if path[-1].key == "router" else torch.bfloat16
+        assert h.dtype == want_dtype, path
+        torch.testing.assert_close(h, f.to(want_dtype), rtol=0, atol=0)
+    served = serving_params(half, tcfg)
+    for (_, s), (_, h) in zip(flat(served["blocks"]), flat(half["blocks"])):
+        assert s is h
+    # the draws of an init that stacks whole layers: embedding, then layer by layer
+    from repro_torch.models import blocks
+    from repro_torch.models.modules import embed_init
+
+    gen = torch.Generator().manual_seed(0)
+    embed_init(gen, tcfg.padded_vocab, tcfg.d_model, tcfg.pdtype())
+    layers = [blocks.block_init(gen, tcfg) for _ in range(tcfg.n_layers)]
+    for path, f in flat(full["blocks"]):
+        def leaf(layer, path=path):
+            for key in path:
+                layer = layer[key.key]
+            return layer
+        torch.testing.assert_close(f, torch.stack([leaf(x) for x in layers]), rtol=0, atol=0)
 
 
 def test_params_from_jax_rejects_mismatch():
@@ -138,15 +201,51 @@ def test_prefill_and_decode_logits_match_jax(kv_dtype, tol, monkeypatch):
     if kv_dtype == "bfloat16":
         _pallas_interpret(monkeypatch)
     jcfg, tcfg = configs(kv_cache_dtype=kv_dtype)
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, jcfg.vocab_size, (2, 2 * jcfg.kv_page_tokens))
+    check_prefill_and_decode(jcfg, tcfg, tokens, tol, rng)
+
+
+# mixtral's smoke config keeps its sliding window (32 tokens) and routes
+# over 4 experts, top 2: 48-token prompts and three decode steps put the
+# window inside the prompt and inside every decode row
+@pytest.mark.parametrize("kv_dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-3)])
+def test_moe_prefill_and_decode_logits_match_jax(kv_dtype, tol, monkeypatch):
+    if kv_dtype == "bfloat16":
+        _pallas_interpret(monkeypatch)
+    jcfg, tcfg = configs("mixtral-8x7b", kv_cache_dtype=kv_dtype)
+    assert tcfg.is_moe and tcfg.sliding_window == 32
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, jcfg.vocab_size, (2, 6 * jcfg.kv_page_tokens))
+    assert tokens.shape[1] > tcfg.sliding_window
+    check_prefill_and_decode(jcfg, tcfg, tokens, tol, rng)
+
+
+def test_vlm_prefill_from_embeddings_matches_jax():
+    """chameleon's backbone takes precomputed embeddings (B, S, d) in place
+    of tokens; decode steps then take tokens."""
+    jcfg, tcfg = configs("chameleon-34b", kv_cache_dtype="float32")
+    assert tcfg.family == "vlm" and tcfg.input_kind == "embeds"
+    rng = np.random.default_rng(4)
+    embeds = rng.standard_normal((2, 2 * jcfg.kv_page_tokens, jcfg.d_model), dtype=np.float32)
+    check_prefill_and_decode(jcfg, tcfg, embeds, 1e-4, rng)
+
+
+def check_prefill_and_decode(jcfg, tcfg, inputs, tol, rng):
+    """Prefill ``inputs`` (tokens, or embeddings for a float array) and take
+    three decode steps in both packages with the same JAX-initialised
+    weights; logits, pools, tables, page_pos and lengths must agree."""
     jmodel, tmodel = jax_build_model(jcfg), build_model(tcfg)
     pnp = jax_params(jcfg)
     jp = jax.tree.map(jnp.asarray, pnp)
     tp = params_from_jax(pnp, tcfg, device="cpu")
-    rng = np.random.default_rng(1)
-    tokens = rng.integers(0, jcfg.vocab_size, (2, 2 * jcfg.kv_page_tokens))
+    if inputs.dtype.kind == "f":
+        batch = {"embeds": jnp.asarray(inputs)}
+    else:
+        batch = {"tokens": jnp.asarray(inputs, jnp.int32)}
 
-    jlogits, jcache = jmodel.prefill(jp, {"tokens": jnp.asarray(tokens, jnp.int32)}, None)
-    tlogits, tcache = tmodel.prefill(tp, torch.from_numpy(tokens))
+    jlogits, jcache = jmodel.prefill(jp, batch, None)
+    tlogits, tcache = tmodel.prefill(tp, torch.from_numpy(inputs))
     np.testing.assert_allclose(as_np(tlogits), as_np(jlogits), rtol=tol, atol=tol)
     for name in ("pool_k", "pool_v"):
         np.testing.assert_allclose(as_np(tcache["kv"][name]), as_np(jcache["kv"][name]),
@@ -155,7 +254,7 @@ def test_prefill_and_decode_logits_match_jax(kv_dtype, tol, monkeypatch):
         np.testing.assert_array_equal(tcache["kv"][name].numpy(), np.asarray(jcache["kv"][name]))
 
     for _ in range(3):
-        nxt = rng.integers(0, jcfg.vocab_size, 2)
+        nxt = rng.integers(0, jcfg.vocab_size, inputs.shape[0])
         jlogits, jcache = jmodel.decode_step(jp, jcache, jnp.asarray(nxt, jnp.int32), None)
         tlogits, tcache = tmodel.decode_step(tp, tcache, torch.from_numpy(nxt))
         np.testing.assert_allclose(as_np(tlogits), as_np(jlogits), rtol=tol, atol=tol)
@@ -172,8 +271,7 @@ def test_init_cache_matches_jax():
     np.testing.assert_array_equal(tc["lengths"].numpy(), np.asarray(jc["lengths"]))
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-370m", "zamba2-2.7b",
-                                  "seamless-m4t-medium", "chameleon-34b"])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b", "seamless-m4t-medium"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_config(arch))

@@ -1,6 +1,7 @@
 """Port serving engine vs the JAX engine on ``get_config("llama3_2-1b").smoke()``
-with the same (JAX-initialised) weights: greedy tokens must be identical on
-the host-allocator cases of tests/test_serving.py.
+(and ``mixtral-8x7b``'s, for the MoE family and a sliding window) with the
+same (JAX-initialised) weights: greedy tokens must be identical on the
+host-allocator cases of tests/test_serving.py.
 
 The JAX engine's default decode path (``use_pallas=False``) casts q to the
 bf16 pool dtype, which its Pallas kernels and reference do not; so the
@@ -103,6 +104,49 @@ def test_engine_tokens_match_jax_engine(setup, pallas_interpret, case):
         assert got[rid].tokens == want[rid].tokens, rid
         assert got[rid].prefill_skipped_tokens == want[rid].prefill_skipped_tokens, rid
     assert teng.alloc.stats == jeng.alloc.stats
+
+
+@pytest.fixture(scope="module")
+def moe_setup():
+    jcfg = jax_get_config("mixtral-8x7b").smoke()
+    tcfg = get_config("mixtral-8x7b").smoke()
+    jparams, _ = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+    return jcfg, jparams, tcfg, tparams
+
+
+LONG_SYSTEM = list(range(300, 340))  # five pages: longer than mixtral's 32-token smoke window
+
+# mixtral smoke (4 experts, top 2, window 32): prompts longer than the
+# window, so it cuts in every prefill and every decode row; capacity
+# factor 4.0 (the smoke config's) drops no assignment
+MOE_CASES = [
+    ("single_long", 2, 64, [[(LONG_SYSTEM + PAGE, 8)]]),
+    ("system_prompt_windowed", 4, 96, [[(LONG_SYSTEM + [200 + 8 * i + j for j in range(8)], 6)
+                                        for i in range(6)]]),
+]
+
+
+@pytest.mark.parametrize("case", MOE_CASES, ids=[c[0] for c in MOE_CASES])
+def test_moe_engine_tokens_match_jax_engine(moe_setup, pallas_interpret, case):
+    jcfg, jparams, tcfg, tparams = moe_setup
+    assert tcfg.is_moe and tcfg.sliding_window < len(LONG_SYSTEM)
+    _, slots, pages, waves = case
+    jeng, want = run(JEngine, JRequest, jcfg, jparams, slots, pages, waves)
+    assert pallas_interpret["flash_attention"] > 0 and pallas_interpret["paged_attention"] > 0
+    teng, got = run(ServingEngine, Request, tcfg, tparams, slots, pages, waves, device="cpu")
+    assert sorted(got) == sorted(want) == list(range(sum(len(w) for w in waves)))
+    for rid in want:
+        assert got[rid].tokens == want[rid].tokens, rid
+        assert got[rid].prefill_skipped_tokens == want[rid].prefill_skipped_tokens, rid
+    assert teng.alloc.stats == jeng.alloc.stats
+
+
+def test_serve_launcher_moe_smoke_on_cpu(capsys):
+    done = serve.main(["--arch", "mixtral-8x7b", "--smoke", "--device", "cpu",
+                       "--requests", "3", "--max-new", "4", "--slots", "2"])
+    assert len(done) == 3 and all(len(c.tokens) == 4 for c in done.values())
+    assert "3 completions" in capsys.readouterr().out
 
 
 def test_serve_launcher_smoke_on_cpu(capsys):
