@@ -14,7 +14,9 @@ JAX package), and it:
    shapes the serving path gives it plus edge cases (inactive sentinel rows,
    a ring ``page_pos``, a sliding window, rows of up to 4096 tokens, ragged
    and offset prompts, head dims 16 to 128 and the padded 80 and 120 in bf16
-   and f32, and mixtral-8x7b's long windowed decode and prefill shapes), and
+   and f32, mixtral-8x7b's long windowed decode and prefill shapes, and
+   zamba2-2.7b's (MHA, head dim 80) and mistral-large-123b's (96 heads over
+   8 kv-heads) decode and prefill shapes), and
    times the kernel, the plain
    version and, where one exists, the single PyTorch call that computes the
    same function, and the kernels under other launch plans (the paged
@@ -56,10 +58,34 @@ JAX package), and it:
    and of the prefill to ``impl="ref"`` when no router choice differs
    between the two runs (a flipped choice moves a row's logits by more than
    any kernel error; the flips are counted and printed);
-8. prints a JSON line with each kernel's launches, error, times and grid at
-   the main-path shape (and its times at the danube and mixtral shapes, and
-   its launches in steps 6 and 7), and, as the last line,
-   ``{"ok": true, "device": {...}}``.
+8. drives ``mamba2-370m`` (the ``ssm`` family) at full width and depth,
+   nothing cut (48 layers, d_model 1024, 32 SSM heads of 64, state 128),
+   through the model API (no engine serves an SSM state): 8 rows of
+   2048-token prompts, then 32 greedy decode steps; prints the prefill's
+   ms, the median decode step, tok/s, peak memory, the SSM state's bytes,
+   the time of the three f32 SSD einsums of one prefill layer and a traced
+   decode step; then, in f32 compute, holds a 1984-token prefill plus 64
+   teacher-forced decode steps to a 2048-token prefill and one 256-token
+   row's prefill logits on the card to the CPU's;
+9. drives ``zamba2-2.7b`` (the ``hybrid`` family: 54 Mamba2 layers in 9
+   groups of 6, one shared attention block of 32 heads over 32 kv-heads of
+   80 after each) at full width and depth, with the same traffic and
+   measures, plus the KV pools' bytes; holds each of the 9 attention calls
+   of one decode step and of one prefill to the plain version and their
+   logits to ``impl="ref"``;
+10. drives ``mistral-large-123b`` with int8 KV pools (quantized at prefill,
+    each decode step writing int8 K/V and f32 scales; the paged kernel
+    reads each layer's pool dequantized to bf16) at full width, cut to 16
+    of its 88 layers (88 layers of bf16 weights are 243.6 GB), with the
+    same traffic; prints the pools' bytes, the dequantize's time, tok/s,
+    the median decode step, peak memory and the logit difference between
+    one int8 decode step and the same step over bf16 pools; holds
+    ``quantize_token`` on the card to the CPU's bit for bit, and each
+    layer's attention call and the logits as step 9 does;
+11. prints a JSON line with each kernel's launches, error, times and grid at
+    the main-path shape (and its times at the danube, mixtral, zamba2 and
+    mistral-large shapes, and its launches in steps 5-10), and, as the last
+    line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero before the last line is printed.
 """
@@ -312,6 +338,9 @@ DANUBE_LENGTHS = [129, 133, 137, 140, 144, 131, 135, 142]  # h2o-danube-3-4b's e
 MIXTRAL_LENGTHS = [4161, 4165, 4170, 4174, 4179, 4183, 4188, 4192]  # mixtral-8x7b's rows in decode
 MIXTRAL_PROMPT = 4160  # a 4096-token system prompt plus a 64-token tail
 WINDOW = 4096  # mixtral-8x7b's (and h2o-danube-3-4b's) sliding window
+PROMPT = 2048  # steps 8-10: 8 rows of 2048-token prompts, then 32 decode steps
+N_DECODE = 32
+SSM_HYBRID_LENGTHS = [2049, 2053, 2058, 2062, 2067, 2071, 2076, 2080]  # those rows in decode
 
 
 def wide_head_cases(gen, errs) -> None:
@@ -334,53 +363,72 @@ def wide_head_cases(gen, errs) -> None:
 
 
 def shape_rows(gen, flush) -> dict:
-    """Kernel, plain and library times and the bound at the shapes of steps
-    6 and 7: h2o-danube-3-4b's (head dim 120, a padded width) and
-    mixtral-8x7b's (8 rows of 4161-4192 tokens over 72-entry tables, and a
-    4160-token prompt, both under the 4096-token window). Each is checked
-    against the plain version first. The library call for flash is SDPA
-    with the causal window as an explicit boolean mask; the paged kernel has
-    none (no single call reads a page table)."""
-    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
-    from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
+    """Kernel, plain and library times, the bound and the launch plan at the
+    shapes of steps 6, 7, 9 and 10: h2o-danube-3-4b's (head dim 120, a
+    padded width), mixtral-8x7b's (8 rows of 4161-4192 tokens over 72-entry
+    tables, and a 4160-token prompt, both under the 4096-token window),
+    zamba2-2.7b's (MHA, 32 heads of 80: 8 rows of 2049-2080 tokens, 8
+    prompts of 2048) and mistral-large-123b's (96 heads over 8 kv-heads of
+    128; the paged kernel reads the bf16 pool an int8 pool dequantizes to).
+    Each is checked against the plain version first. The library call for
+    flash is SDPA (with the causal window as an explicit boolean mask where
+    there is one); the paged kernel has none (no single call reads a page
+    table)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    n_sm = torch.cuda.get_device_properties(gen.device).multi_processor_count
     rows = {"paged_attention": {}, "flash_attention": {}}
+    long = dict(R=33, P=264, lengths=SSM_HYBRID_LENGTHS)
     cases = {
         "danube": (dict(D=120, lengths=DANUBE_LENGTHS), dict(Sq=128, Sk=128, D=120)),
         "mixtral": (dict(D=128, R=72, P=1024, lengths=MIXTRAL_LENGTHS, window=WINDOW),
                     dict(Sq=MIXTRAL_PROMPT, Sk=MIXTRAL_PROMPT, D=128, window=WINDOW)),
+        "zamba2": (dict(H=32, K=32, D=80, **long), dict(B=8, Sq=PROMPT, Sk=PROMPT, H=32, K=32, D=80)),
+        "mistral": (dict(H=96, K=8, D=128, **long), dict(B=8, Sq=PROMPT, Sk=PROMPT, H=96, K=8, D=128)),
     }
     for tag, (pk, fk) in cases.items():
         args, win = paged_case(gen, **pk)
+        q, pool_k, _, tables, _, _ = args
+        plan = pa.launch_plan(q.shape[0], q.shape[1], pool_k.shape[2], q.shape[2], tables.shape[1], n_sm)
         row = dict(max_abs_err=check_paged(args, win, f"{tag} decode shape {pk}"),
-                   ms=time_ms(lambda: paged_attention_cuda(*args, window=win), flush=flush),
-                   plain_ms=time_ms(lambda: paged_attention_plain(*args, window=win), flush=flush),
-                   library_ms=None)
+                   ms=time_ms(lambda: pa.paged_attention_cuda(*args, window=win), flush=flush),
+                   plain_ms=time_ms(lambda: pa.paged_attention_plain(*args, window=win), flush=flush),
+                   library_ms=None, grid=list(plan.grid), head_chunk=plan.head_chunk,
+                   n_splits=plan.n_splits)
         row.update(zip(("bound_ms", "bound_by"), bound_ms(*paged_work(args, win))))
         rows["paged_attention"][tag] = row
-        del args
+        del args, q, pool_k, tables
 
         (q, k, v), kw = flash_case(gen, **fk)
         err = check_flash((q, k, v), kw, f"{tag} prefill shape {fk}")
-        Sq, Sk = q.shape[1], k.shape[1]
-        mask = flash_mask(Sq, Sk, causal=True, window=kw["window"], q_start=0, device=q.device)
+        B, Sq, H, D = q.shape
+        Sk, K = k.shape[1], k.shape[2]
+        plan = fa.launch_plan(B, Sq, H, K, D, q.dtype)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        library = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
-        lib_err = (library().transpose(1, 2).float() - flash_attention_cuda(q, k, v, **kw).float()).abs().max().item()
-        iters = 50 if Sq <= 1024 else 10  # the plain version materialises Sq x Sk scores
-        row = dict(max_abs_err=err, ms=time_ms(lambda: flash_attention_cuda(q, k, v, **kw), iters),
-                   plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, **kw), iters),
-                   library_ms=time_ms(library, iters))
+        if kw["window"]:
+            mask = flash_mask(Sq, Sk, causal=True, window=kw["window"], q_start=0, device=q.device)
+            library = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=H != K)  # noqa: E731
+        else:
+            library = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=H != K)  # noqa: E731
+        lib_err = (library().transpose(1, 2).float() - fa.flash_attention_cuda(q, k, v, **kw).float()).abs().max().item()
+        iters = 50 if B * Sq <= 1024 else 10  # the plain version materialises Sq x Sk scores
+        row = dict(max_abs_err=err, ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), iters),
+                   plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), min(iters, 5 if B > 1 else 10)),
+                   library_ms=time_ms(library, iters), grid=list(plan.grid), heads_per_cta=plan.heads_per_cta)
         row.update(zip(("bound_ms", "bound_by"), bound_ms(*flash_work((q, k, v), kw))))
         rows["flash_attention"][tag] = row
-        print(f"  SDPA with the explicit mask at the {tag} prefill shape: max abs difference from the "
-              f"kernel {lib_err:.3e}", flush=True)
-        del q, k, v, qt, kt, vt, mask
+        print(f"  SDPA at the {tag} prefill shape: max abs difference from the kernel {lib_err:.3e}", flush=True)
+        del q, k, v, qt, kt, vt, library
+        torch.cuda.empty_cache()
     for name, by_tag in rows.items():
         for tag, r in by_tag.items():
+            plan = (f"grid {r['grid']}, {r['heads_per_cta']} heads per CTA" if "heads_per_cta" in r else
+                    f"grid {r['grid']}, head chunk {r['head_chunk']}, {r['n_splits']} splits")
             print(f"  {name} at the {tag} shape: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"library {r['library_ms']} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
+                  f"library {r['library_ms']} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}); {plan}",
+                  flush=True)
     return rows
 
 
@@ -690,7 +738,9 @@ def hold_to_ref(model, params, captured, step, prompt, dev, prefix="") -> None:
 
 
 def clone_cache(c) -> dict:
-    return {"kv": {k: v.clone() for k, v in c["kv"].items()}, "lengths": c["lengths"].clone()}
+    """A copy of a cache (nested dicts of tensors): decode steps write the
+    pools and SSM states in place."""
+    return {k: clone_cache(v) if isinstance(v, dict) else v.clone() for k, v in c.items()}
 
 
 def build_engine(cfg, name, dev, **engine_kw):
@@ -767,17 +817,20 @@ def danube_phase(cfg, dev, kernels) -> dict:
 
 
 MIXTRAL_LAYERS = 16  # of 32: 32 layers of bf16 weights (93 GB) exceed the card's 80 GB
+MISTRAL_LAYERS = 16  # of 88: 88 layers of bf16 weights (243.6 GB) exceed the card's 80 GB
 MIXTRAL_CAPTURE_STEP = 16  # rows of 4176 tokens: the window cuts in every row
 
 
 def record_routes() -> dict:
     """Wrap the port's MoE dispatch so that, while ``state["on"]``, every
     call's router top-k choices (each token's experts, sorted) are kept, in
-    call order, and the first call's inputs and output in ``state["first"]``."""
+    call order, and the first call's inputs and output in ``state["first"]``;
+    ``state["restore"]()`` puts the dispatch back."""
     from repro_torch.models import moe
 
-    state = {"on": False, "calls": [], "first": None}
     inner = moe._moe_local
+    state = {"on": False, "calls": [], "first": None,
+             "restore": lambda: setattr(moe, "_moe_local", inner)}
 
     def run(x, router, w1, wg, w2, cfg, **kw):
         out = inner(x, router, w1, wg, w2, cfg, **kw)
@@ -860,8 +913,8 @@ def checked_attention(errs) -> callable:
     the very same inputs (the layer's own q, k, v, pools, tables and
     lengths) and keep the errors: flash's (max abs, row error, within the
     limits of :func:`flash_ok`), and paged's :func:`paged_errs` of the kernel's own (o, m, l),
-    from one more launch on the same inputs; returns the function that
-    restores them."""
+    from one more launch on the same inputs (an int8 pool dequantized, as
+    the kernel read it); returns the function that restores them."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
@@ -880,6 +933,8 @@ def checked_attention(errs) -> callable:
     def paged_checked(q, pool_k, pool_v, tables, page_pos, lengths, *, window=None, impl=None, **kw):
         out = paged(q, pool_k, pool_v, tables, page_pos, lengths, window=window, impl=impl, **kw)
         if impl is None:
+            if pool_k.dtype == torch.int8:  # what the kernel read: the pool dequantized to bf16
+                pool_k, pool_v = (ops.dequantize_pool(p, kw[s]) for p, s in ((pool_k, "scale_k"), (pool_v, "scale_v")))
             args = (q.contiguous(), pool_k, pool_v, tables.to(torch.int32).contiguous(),
                     page_pos.to(torch.int32).contiguous(), lengths.to(torch.int32).contiguous())
             got = paged_attention_cuda(*args, window=window)
@@ -898,8 +953,8 @@ def step_ms(fn, dev, reps: int = 3) -> tuple:
     """Median span of one synchronised call between CUDA events (the device
     waits on the host inside it too); the device's busy time in one more
     call from a ``torch.profiler`` trace (the union of its kernel and copy
-    intervals), and that call's six ops with the most device time, as
-    (name, ms, calls)."""
+    intervals), that call's six ops with the most device time, as
+    (name, ms, calls), and its host calls (:func:`host_calls`)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.profile_serve import _merged_device_intervals
@@ -919,7 +974,25 @@ def step_ms(fn, dev, reps: int = 3) -> tuple:
     merged = _merged_device_intervals(prof.events())
     top = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
                   if e.self_device_time_total > 0), key=lambda t: -t[1])[:6]
-    return statistics.median(spans), sum(e - s for s, e in merged) / 1e3, top
+    return statistics.median(spans), sum(e - s for s, e in merged) / 1e3, top, host_calls(prof.events())
+
+
+def host_calls(events) -> dict:
+    """Host calls in a trace: aten ops (nested ones included), kernel
+    launches and synchronisations, as ``profile_serve`` counts them."""
+    from torch.autograd import DeviceType
+
+    counts = {"aten_ops": 0, "kernel_launches": 0, "syncs": 0}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            continue
+        if e.name.startswith("aten::"):
+            counts["aten_ops"] += 1
+        elif e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx", "cudaLaunchKernelExC"):
+            counts["kernel_launches"] += 1
+        elif "Synchronize" in e.name:
+            counts["syncs"] += 1
+    return counts
 
 
 def mixtral_phase(cfg, dev, kernels) -> dict:
@@ -978,10 +1051,10 @@ def mixtral_phase(cfg, dev, kernels) -> dict:
           "mixtral: a layer's paged kernel disagrees with plain")
     hold_moe(routes["first"], cfg, f"decode step {MIXTRAL_CAPTURE_STEP}")
 
-    span_ms, busy_ms, top = step_ms(lambda: model.decode_step(engine.params, cache, tokens), dev)
+    span_ms, busy_ms, top, calls = step_ms(lambda: model.decode_step(engine.params, cache, tokens), dev)
     print(f"  one mixtral decode step (8 rows): {span_ms:.3f} ms between CUDA events around the synchronised "
           f"step, device busy {busy_ms:.3f} ms of it (profiler); expert-weight byte bound {bound:.2f} ms; "
-          f"most device time: " + "; ".join(f"{name} {ms:.3f} ms in {n} calls" for name, ms, n in top),
+          f"host calls {calls}; most device time: " + "; ".join(f"{name} {ms:.3f} ms in {n} calls" for name, ms, n in top),
           flush=True)
 
     (want, _), routes_r = routed(routes, lambda: model.decode_step(engine.params, cache, tokens, impl="ref"))
@@ -1015,10 +1088,303 @@ def mixtral_phase(cfg, dev, kernels) -> dict:
           f"router choices that differ: {flips} of {n_choices} (token, layer) pairs", flush=True)
     check(bool(torch.isfinite(lk).all()), "mixtral: non-finite prefill logits")
     check(flips > 0 or rel <= LOGITS_TOL, "mixtral prefill logits disagree with ref with the same routing")
+    routes["restore"]()  # the recorded first call holds views of the expert weights
+    routes.clear()
     n_tokens = sum(len(c.tokens) for c in done.values())
     return dict(launches=launches, tok_s=n_tokens / wall, peak_gib=peak / 2**30,
                 decode_step_ms=statistics.median(decode_s) * 1e3, step_span_ms=span_ms,
                 step_busy_ms=busy_ms, expert_bound_ms=bound)
+
+
+# ------------------------------ steps 8-10: the model API ------------------------------
+F32_FLOPS_PER_S = 67e12  # one H100 SXM's f32 rate outside the tensor cores (NVIDIA's data sheet)
+SSM_TOL = 1e-3  # card vs CPU prefill logits in f32: max |d| over 1 + |cpu| (summation order only)
+CONTINUATION_TOL = 2e-2  # tests/test_arch_smoke.py's teacher-forced continuation
+
+
+def prompt_tokens(cfg, B: int, S: int, dev, seed: int = 0) -> torch.Tensor:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+
+
+def build_model_params(cfg, name, dev, dtype):
+    """Random weights from seed 0, drawn on the card straight into ``dtype``
+    (the leaves the model uses in f32 kept f32); prints the build's peak
+    device memory."""
+    from repro_torch.models.lm import build_model
+
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev, dtype=dtype)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"model: {name}: {n_params} parameters, {w_bytes / 1e9:.3f} GB in {dtype}; built in "
+          f"{time.perf_counter() - t0:.2f} s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    return model, params
+
+
+def drive(model, params, cfg, tokens, kernels, name) -> dict:
+    """The traffic of steps 8-10 through the model API, every kernel count
+    at 0 first: one prefill of ``tokens``, then ``N_DECODE`` greedy decode
+    steps, each timed on the host clock and synchronised. Checks the logits
+    are finite; returns the measures, the last cache and the launches."""
+    dev = tokens.device
+    model.prefill(params, tokens[:, :cfg.kv_page_tokens])  # first-call set-up (cuBLAS handles)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, tokens)
+    torch.cuda.synchronize(dev)
+    prefill_s = time.perf_counter() - t0
+    steps = []
+    for _ in range(N_DECODE):
+        check(bool(torch.isfinite(logits).all()), f"{name}: non-finite logits")
+        nxt = logits[:, :cfg.vocab_size].argmax(-1)
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, nxt)
+        torch.cuda.synchronize(dev)
+        steps.append(time.perf_counter() - t0)
+    check(bool(torch.isfinite(logits).all()), f"{name}: non-finite logits")
+    check(tuple(logits.shape) == (tokens.shape[0], cfg.padded_vocab), f"{name}: logits {tuple(logits.shape)}")
+    launches = {k.__name__.removesuffix("_cuda"): k.launches for k in kernels}
+    B = tokens.shape[0]
+    out = dict(prefill_ms=prefill_s * 1e3, decode_step_ms=statistics.median(steps) * 1e3,
+               decode_tok_s=B * N_DECODE / sum(steps),
+               tok_s=B * (N_DECODE + 1) / (prefill_s + sum(steps)),
+               run_peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
+    print(f"  {name}: {B} rows of {tokens.shape[1]} tokens, prefill {out['prefill_ms']:.2f} ms; {N_DECODE} "
+          f"greedy decode steps, median {out['decode_step_ms']:.3f} ms, least {min(steps) * 1e3:.3f} ms (host "
+          f"clock, synchronised): {out['decode_tok_s']:.1f} tok/s in decode, {out['tok_s']:.1f} tok/s with the "
+          f"prefill ({B * (N_DECODE + 1)} tokens); peak memory {out['run_peak_gib']:.2f} GiB; launches {launches}",
+          flush=True)
+    return out, logits, cache
+
+
+def state_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for t in cache["ssm"].values())
+
+
+def ssd_einsum_ms(cfg, B: int, S: int, dev) -> dict:
+    """The three f32 einsums of one prefill layer's SSD scan
+    (``ssd_chunked``'s ``y_intra``, chunk ``states`` and ``y_inter``), timed
+    at that layer's shapes on random operands, beside their f32 flops."""
+    from repro_torch.models.ssm import chunk_len
+
+    L = chunk_len(S, cfg.ssm_chunk)
+    nc, H, P, N, G = S // L, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_groups
+    r = lambda *shape: torch.randn(shape, device=dev)  # noqa: E731
+    cases = {
+        "y_intra": ("bchlm,bcmhp->bclhp", (r(B, nc, H, L, L), r(B, nc, L, H, P)), 2 * B * nc * H * L * L * P),
+        "states": ("bclgn,bclh,bclhp->bchnp", (r(B, nc, L, G, N), r(B, nc, L, H), r(B, nc, L, H, P)),
+                   2 * B * nc * L * H * N * P),
+        "y_inter": ("bclhn,bchnp,bclh->bclhp", (r(B, nc, L, H, N), r(B, nc, H, N, P), r(B, nc, L, H)),
+                    2 * B * nc * L * H * N * P),
+    }
+    out = {}
+    for name, (eq, ops_, flops) in cases.items():
+        ms = time_ms(lambda: torch.einsum(eq, *ops_), 10)
+        out[name] = dict(ms=ms, gflop=flops / 1e9, tflop_s=flops / ms / 1e9)
+    print(f"  SSD einsums of one prefill layer (B={B}, chunks {nc} x {L}, H={H}, P={P}, N={N}; f32, TF32 off; "
+          f"f32 peak {F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s): " + "; ".join(
+              f"{n} {v['ms']:.4f} ms ({v['gflop']:.2f} GFLOP, {v['tflop_s']:.1f} TFLOP/s)" for n, v in out.items()),
+          flush=True)
+    return out
+
+
+def profile_step(model, params, cache, cfg, dev, name) -> dict:
+    """Decode steps on a copy of ``cache`` (each writes the same position
+    again), one under the profiler: span, device busy time and the ops with
+    the most device time."""
+    c = clone_cache(cache)
+    nxt = torch.zeros((cache["lengths"].shape[0],), dtype=torch.long, device=dev)
+    span_ms, busy_ms, top, calls = step_ms(lambda: model.decode_step(params, c, nxt), dev)
+    print(f"  one {name} decode step: {span_ms:.3f} ms between CUDA events around the synchronised step, "
+          f"device busy {busy_ms:.3f} ms of it ({100 * busy_ms / span_ms:.1f}%; "
+          f"profiler); host calls {calls}; most device time: " + "; ".join(f"{n} {ms:.3f} ms in {k} calls" for n, ms, k in top),
+          flush=True)
+    return dict(step_span_ms=span_ms, step_busy_ms=busy_ms, step_host_calls=calls)
+
+
+def mamba2_phase(cfg, dev, kernels) -> dict:
+    """Step 8: mamba2-370m at full width and depth through the model API: 8
+    rows of 2048-token prompts (8 SSD chunks each), 32 greedy decode steps.
+    Then, in f32 compute: (a) a 1984-token prefill (chunks of 248) and 64
+    teacher-forced decode steps reach a 2048-token prefill's logits and
+    SSM states; (b) one 256-token row's prefill logits on the card are the
+    CPU's."""
+    model, params = build_model_params(cfg, cfg.arch_id, dev, cfg.cdtype())
+    tokens = prompt_tokens(cfg, 8, PROMPT, dev)
+    res, _, cache = drive(model, params, cfg, tokens, kernels, "mamba2 run")
+    res["ssm_state_bytes"] = state_bytes(cache)
+    print(f"  mamba2 SSM state: {res['ssm_state_bytes']} bytes (f32 ssm {tuple(cache['ssm']['ssm'].shape)}, "
+          f"conv {tuple(cache['ssm']['conv'].shape)})", flush=True)
+    res["einsums"] = ssd_einsum_ms(cfg, 8, PROMPT, dev)
+    res.update(profile_step(model, params, cache, cfg, dev, "mamba2"))
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model32, params32 = build_model_params(cfg32, f"{cfg.arch_id} in f32", dev, torch.float32)
+    toks = tokens[:2]
+    want, wcache = model32.prefill(params32, toks)
+    cut = PROMPT - 64
+    logits, cache = model32.prefill(params32, toks[:, :cut])
+    for i in range(cut, PROMPT):
+        logits, cache = model32.decode_step(params32, cache, toks[:, i])
+    d = (logits - want).abs()
+    ok = bool(torch.isfinite(logits).all()) and bool((d <= CONTINUATION_TOL * (1 + want.abs())).all())
+    sd = {n: ((cache["ssm"][n] - wcache["ssm"][n]).abs().max().item(), wcache["ssm"][n].abs().max().item())
+          for n in ("ssm", "conv")}
+    print(f"  (a) continuation, f32: prefill {cut} tokens (chunks of {cut // 8}) + 64 teacher-forced decode "
+          f"steps vs a {PROMPT}-token prefill: logits max abs err {d.max().item():.3e} (tol rtol = atol = "
+          f"{CONTINUATION_TOL}); SSM state max abs err {sd['ssm'][0]:.3e} (max |state| {sd['ssm'][1]:.3e}), "
+          f"conv tail {sd['conv'][0]:.3e}", flush=True)
+    check(ok, "mamba2: decode after prefill does not continue the longer prefill")
+    res["continuation_err"] = d.max().item()
+
+    row = toks[:1, :256]
+    got, _ = model32.prefill(params32, row)
+    cpu_params = _tree_to(params32, "cpu")
+    del params32
+    torch.cuda.empty_cache()
+    want, _ = model32.prefill(cpu_params, row.cpu())
+    rel = ((got.cpu() - want).abs() / (1 + want.abs())).max().item()
+    print(f"  (b) card vs CPU, f32: one 256-token row's prefill logits, max |d| / (1 + |cpu|) = {rel:.3e} "
+          f"(tol {SSM_TOL})", flush=True)
+    check(bool(torch.isfinite(got).all()) and rel <= SSM_TOL, "mamba2: the card's prefill disagrees with the CPU's")
+    res["card_vs_cpu"] = rel
+    return res
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def hold_attention_layers(model, params, cfg, cache, prompt, dev, name, n_attn) -> dict:
+    """One decode step from a copy of ``cache`` and one prefill of
+    ``prompt`` (one row), each attention layer's kernel call held to the
+    plain version on its own inputs (as step 7), and their logits held to
+    ``impl="ref"`` from the same starting point."""
+    nxt = torch.zeros((cache["lengths"].shape[0],), dtype=torch.long, device=dev)
+    errs = {"flash_attention": [], "paged_attention": []}
+    restore = checked_attention(errs)
+    try:
+        got, _ = model.decode_step(params, clone_cache(cache), nxt)
+    finally:
+        restore()
+    want, _ = model.decode_step(params, clone_cache(cache), nxt, impl="ref")
+    check(len(errs["paged_attention"]) == n_attn, f"{name}: {len(errs['paged_attention'])} paged calls")
+    worst, scaled, stat_err = (max(e) for e in zip(*errs["paged_attention"]))
+    rel_d = (got - want).abs().max().item() / want.abs().max().item()
+    lengths = cache["lengths"]
+    print(f"  {name} decode step (rows of {lengths.min().item() + 1}-{lengths.max().item() + 1} tokens): paged "
+          f"kernel (o, m, l) vs plain on each of its {n_attn} attention layers' inputs, normalised o max abs err "
+          f"{worst:.3e}, over 1 + |plain| {scaled:.3e} (tol {TOL_F32['paged_attention']}), m/l err {stat_err:.3e} "
+          f"(tol 1e-3); logits vs ref: max abs err / max |ref| = {rel_d:.3e} (tol {LOGITS_TOL})", flush=True)
+    check(scaled <= TOL_F32["paged_attention"] and stat_err <= 1e-3, f"{name}: a layer's paged kernel disagrees")
+    check(bool(torch.isfinite(got).all()) and rel_d <= LOGITS_TOL, f"{name}: decode logits disagree with ref")
+
+    restore = checked_attention(errs)
+    try:
+        lk, ck = model.prefill(params, prompt)
+    finally:
+        restore()
+    lr, _ = model.prefill(params, prompt, impl="ref")
+    check(len(errs["flash_attention"]) == n_attn, f"{name}: {len(errs['flash_attention'])} flash calls")
+    worst, rel, _ = (max(e) for e in zip(*errs["flash_attention"]))
+    rel_p = (lk - lr).abs().max().item() / lr.abs().max().item()
+    print(f"  {name} prefill (Sq=Sk={prompt.shape[1]}): flash kernel vs plain on each of its {n_attn} attention "
+          f"layers' inputs, max abs err {worst:.3e}, row err {rel:.3e} (tol {ROW_TOL} in bf16); logits vs ref: "
+          f"max abs err / max |ref| = {rel_p:.3e} (tol {LOGITS_TOL})", flush=True)
+    check(all(e[2] for e in errs["flash_attention"]), f"{name}: a layer's flash kernel disagrees with plain")
+    check(bool(torch.isfinite(lk).all()) and rel_p <= LOGITS_TOL, f"{name}: prefill logits disagree with ref")
+    return dict(paged_scaled_err=scaled, flash_row_err=rel, decode_vs_ref=rel_d, prefill_vs_ref=rel_p,
+                one_row_prefill=(lk, ck))
+
+
+def zamba2_phase(cfg, dev, kernels) -> dict:
+    """Step 9: zamba2-2.7b at full width and depth through the model API:
+    54 Mamba2 layers in 9 groups of 6, the shared attention block (32 heads
+    over 32 kv-heads of 80) after each group; 8 rows of 2048-token prompts
+    (32 pages of 64 plus one headroom page), 32 greedy decode steps."""
+    model, params = build_model_params(cfg, cfg.arch_id, dev, cfg.cdtype())
+    tokens = prompt_tokens(cfg, 8, PROMPT, dev)
+    res, _, cache = drive(model, params, cfg, tokens, kernels, "zamba2 run")
+    check(all(n > 0 for n in res["launches"].values()), f"zamba2: a kernel never ran: {res['launches']}")
+    n_attn = cfg.n_layers // cfg.attn_every
+    kv_bytes = sum(cache["kv"][n].numel() * cache["kv"][n].element_size() for n in ("pool_k", "pool_v"))
+    res.update(ssm_state_bytes=state_bytes(cache), kv_pool_bytes=kv_bytes)
+    print(f"  zamba2 state: SSM {res['ssm_state_bytes']} bytes (ssm {tuple(cache['ssm']['ssm'].shape)}, conv "
+          f"{tuple(cache['ssm']['conv'].shape)}); KV pools {kv_bytes} bytes ({tuple(cache['kv']['pool_k'].shape)} "
+          f"x2 {cache['kv']['pool_k'].dtype})", flush=True)
+    res["einsums"] = ssd_einsum_ms(cfg, 8, PROMPT, dev)
+    res.update(profile_step(model, params, cache, cfg, dev, "zamba2"))
+    held = hold_attention_layers(model, params, cfg, cache, tokens[:1], dev, "zamba2", n_attn)
+    held.pop("one_row_prefill")
+    res.update(held)
+    return res
+
+
+def mistral_phase(cfg, dev, kernels) -> dict:
+    """Step 10: mistral-large-123b (16 of its 88 layers) with int8 KV pools
+    through the model API: 8 rows of 2048-token prompts quantized into the
+    pools at prefill, 32 decode steps each writing int8 K/V and f32 scales;
+    the paged kernel reads each layer's pool dequantized to bf16."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import build_model
+
+    model, params = build_model_params(cfg, f"{cfg.arch_id} ({cfg.n_layers} layers)", dev, cfg.cdtype())
+    tokens = prompt_tokens(cfg, 8, PROMPT, dev)
+    res, _, cache = drive(model, params, cfg, tokens, kernels, "mistral-large run")
+    check(all(n > 0 for n in res["launches"].values()), f"mistral-large: a kernel never ran: {res['launches']}")
+    kv = cache["kv"]
+    check(kv["pool_k"].dtype == torch.int8 and kv["scale_k"].dtype == torch.float32, "mistral-large: pools not int8")
+    pool_bytes = sum(kv[n].numel() for n in ("pool_k", "pool_v"))
+    scale_bytes = sum(kv[n].numel() * 4 for n in ("scale_k", "scale_v"))
+    pk, sk, pv, sv = kv["pool_k"][0], kv["scale_k"][0], kv["pool_v"][0], kv["scale_v"][0]
+    deq_ms = time_ms(lambda: (ops.dequantize_pool(pk, sk), ops.dequantize_pool(pv, sv)), 20)
+    deq_bytes = 2 * (pk.numel() * (1 + 2) + sk.numel() * 4)  # int8 read, bf16 written, scales read
+    res.update(pool_bytes=pool_bytes, scale_bytes=scale_bytes, dequantize_ms=deq_ms)
+    print(f"  mistral-large pools: {pool_bytes} bytes int8 + {scale_bytes} bytes of f32 scales "
+          f"({tuple(kv['pool_k'].shape)} x2), against {2 * pool_bytes} in bf16; dequantizing one layer's K and V "
+          f"{deq_ms:.4f} ms a step (bound {deq_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms: {deq_bytes} bytes)",
+          flush=True)
+    res.update(profile_step(model, params, cache, cfg, dev, "mistral-large"))
+    held = hold_attention_layers(model, params, cfg, cache, tokens[:1], dev, "mistral-large", cfg.n_layers)
+    lk, ck = held.pop("one_row_prefill")
+    res.update(held)
+
+    # the same prompt over bf16 pools: the int8 pools are its K/V quantized,
+    # and one decode step differs by the quantization error alone
+    model16 = build_model(dataclasses.replace(cfg, kv_cache_dtype="bfloat16"))
+    _, c16 = model16.prefill(params, tokens[:1])
+    k16 = c16["kv"]["pool_k"][0]
+    q_card, s_card = ops.quantize_token(k16)
+    q_cpu, s_cpu = ops.quantize_token(k16.cpu())
+    check(torch.equal(q_card.cpu(), q_cpu) and torch.equal(s_card.cpu(), s_cpu),
+          "mistral-large: quantize_token on the card differs from the CPU's")
+    if k16.dtype == cfg.cdtype():  # K is stored unrounded: the int8 pool is exactly its quantization
+        check(torch.equal(ck["kv"]["pool_k"][0], q_card) and torch.equal(ck["kv"]["scale_k"][0], s_card),
+              "mistral-large: the prefill's int8 pool is not quantize_token of its K")
+    nxt = lk.argmax(-1)
+    d8, _ = model.decode_step(params, ck, nxt)
+    d16, _ = model16.decode_step(params, c16, nxt)
+    res["int8_vs_bf16_logits"] = (d8 - d16).abs().max().item()
+    print(f"  quantize_token of layer 0's K ({tuple(k16.shape)} {k16.dtype}) on the card equals the CPU's bit "
+          f"for bit (and the prefill's int8 pool where K is not rounded first); one decode step over int8 vs bf16 pools: max |logits difference| "
+          f"{res['int8_vs_bf16_logits']:.4e} (max |logit| {d16.abs().max().item():.4e}; quantization error, "
+          f"not held)", flush=True)
+    return res
 
 
 def main() -> None:
@@ -1215,8 +1581,38 @@ def main() -> None:
     check(MIXTRAL_PROMPT == WINDOW + mixtral.kv_page_tokens, "the prompt is the window plus one page")
     mixtral = mixtral_phase(mixtral, dev, kernels)
     print(f"mixtral: {json.dumps(mixtral)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 8. results
+    # 8. mamba2-370m: the ssm family at full width and depth, model API
+    mamba = get_config("mamba2-370m")
+    check((mamba.n_layers, mamba.d_model, mamba.d_inner, mamba.ssm_heads, mamba.ssm_headdim, mamba.ssm_state,
+           mamba.ssm_conv, mamba.ssm_chunk, mamba.vocab_size, mamba.padded_vocab)
+          == (48, 1024, 2048, 32, 64, 128, 4, 256, 50280, 50432), f"unexpected config {mamba}")
+    mamba = mamba2_phase(mamba, dev, kernels)
+    print(f"mamba2: {json.dumps(mamba)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9. zamba2-2.7b: the hybrid family at full width and depth, model API
+    zamba = get_config("zamba2-2.7b")
+    check((zamba.n_layers, zamba.attn_every, zamba.d_model, zamba.d_inner, zamba.ssm_heads, zamba.ssm_state,
+           zamba.n_heads, zamba.n_kv_heads, zamba.head_dim, zamba.d_ff, zamba.vocab_size)
+          == (54, 6, 2560, 5120, 80, 64, 32, 32, 80, 10240, 32000), f"unexpected config {zamba}")
+    zamba = zamba2_phase(zamba, dev, kernels)
+    print(f"zamba2: {json.dumps(zamba)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 10. mistral-large-123b: int8 KV pools, cut to 16 of its 88 layers
+    mistral = dataclasses.replace(get_config("mistral-large-123b"), n_layers=MISTRAL_LAYERS)
+    check((mistral.d_model, mistral.n_heads, mistral.n_kv_heads, mistral.head_dim, mistral.d_ff,
+           mistral.vocab_size, mistral.rope_theta, mistral.kv_cache_dtype, mistral.param_dtype)
+          == (12288, 96, 8, 128, 28672, 32768, 1e6, "int8", "bfloat16"), f"unexpected config {mistral}")
+    mistral = mistral_phase(mistral, dev, kernels)
+    print(f"mistral-large: {json.dumps(mistral)}", flush=True)
+
+    # 11. results
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:79"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -1230,6 +1626,8 @@ def main() -> None:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "launches_blob": launches_blob[name],
             "launches_danube": launches_danube[name], "launches_mixtral": mixtral["launches"][name],
+            "launches_mamba2": mamba["launches"][name], "launches_zamba2": zamba["launches"][name],
+            "launches_mistral": mistral["launches"][name],
             "shapes": rows[name], **grids[name],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

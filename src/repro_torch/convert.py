@@ -1,7 +1,7 @@
 """The one way weights cross from the JAX package to the port.
 
-:func:`params_from_jax` takes the JAX parameter pytree of a decoder (the
-``dense``, ``moe`` and ``vlm`` families) -- as nested dicts of numpy arrays,
+:func:`params_from_jax` takes the JAX parameter pytree of a ported family
+(``dense``, ``moe``, ``vlm``, ``ssm``, ``hybrid``) -- as nested dicts of numpy arrays,
 e.g. ``jax.tree.map(np.asarray, params)`` of
 ``build_model(cfg).init(PRNGKey(0))[0]`` -- and returns the port's params
 with the same structure, shapes, dtypes and values. No JAX is imported here.
@@ -19,27 +19,54 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import PORTED
 
 
-def param_shapes(cfg: ModelConfig) -> Dict:
-    """The shape tree of a decoder's params (layer leaves stacked). A MoE
-    block's ffn is the f32 router ``(L, d, E)`` and the experts stacked
-    ``(L, E, ...)``."""
-    L, d, H, K = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads
-    hd, f, V, E = cfg.head_dim, cfg.d_ff, cfg.padded_vocab, cfg.n_experts
+def _attn_block_shapes(cfg: ModelConfig, *lead: int) -> Dict:
+    """A transformer block's shapes, each leaf behind the ``lead`` axes. A
+    MoE block's ffn is the f32 router ``(d, E)`` and the experts stacked
+    ``(E, ...)``."""
+    d, H, K, hd, f, E = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.n_experts
     if cfg.is_moe:
-        ffn = {"router": (L, d, E), "w1": (L, E, d, f), "wg": (L, E, d, f), "w2": (L, E, f, d)}
+        ffn = {"router": (d, E), "w1": (E, d, f), "wg": (E, d, f), "w2": (E, f, d)}
     else:
-        ffn = {"wi": (L, d, f), "wg": (L, d, f), "wo": (L, f, d)}
-    return {
-        "embed": {"table": (V, d)},
-        "blocks": {
-            "ln1": (L, d),
-            "attn": {"wq": (L, d, H, hd), "wk": (L, d, K, hd), "wv": (L, d, K, hd),
-                     "wo": (L, H, hd, d)},
-            "ln2": (L, d),
-            "ffn": ffn,
-        },
-        "ln_f": (d,),
-    }
+        ffn = {"wi": (d, f), "wg": (d, f), "wo": (f, d)}
+    block = {"ln1": (d,), "attn": {"wq": (d, H, hd), "wk": (d, K, hd), "wv": (d, K, hd), "wo": (H, hd, d)},
+             "ln2": (d,), "ffn": ffn}
+    return _prefix(block, lead)
+
+
+def _ssm_block_shapes(cfg: ModelConfig, *lead: int) -> Dict:
+    """A Mamba2 block's shapes, each leaf behind the ``lead`` axes."""
+    d, di, n, g, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_groups, cfg.ssm_heads
+    conv_dim = di + 2 * g * n
+    ssm = {"in_proj": (d, 2 * di + 2 * g * n + h), "conv_w": (cfg.ssm_conv, conv_dim),
+           "conv_b": (conv_dim,), "A_log": (h,), "D": (h,), "dt_bias": (h,), "norm": (di,),
+           "out_proj": (di, d)}
+    return _prefix({"ln": (d,), "ssm": ssm}, lead)
+
+
+def _prefix(shapes, lead: Tuple[int, ...]):
+    if isinstance(shapes, dict):
+        return {k: _prefix(v, lead) for k, v in shapes.items()}
+    return tuple(lead) + tuple(shapes)
+
+
+def param_shapes(cfg: ModelConfig) -> Dict:
+    """The shape tree of a model's params. Decoders (``dense``, ``moe``,
+    ``vlm``) and ``ssm`` stack their blocks ``(L, ...)`` under ``"blocks"``;
+    ``hybrid`` stacks its Mamba2 blocks ``(n_groups, per_group, ...)`` under
+    ``"mamba"`` beside one ``"shared_attn"`` transformer block."""
+    if cfg.family not in PORTED:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1, item 8)")
+    L, d, V = cfg.n_layers, cfg.d_model, cfg.padded_vocab
+    top = {"embed": {"table": (V, d)}}
+    if cfg.family == "hybrid":
+        top["mamba"] = _ssm_block_shapes(cfg, L // cfg.attn_every, cfg.attn_every)
+        top["shared_attn"] = _attn_block_shapes(cfg)
+    elif cfg.family == "ssm":
+        top["blocks"] = _ssm_block_shapes(cfg, L)
+    else:
+        top["blocks"] = _attn_block_shapes(cfg, L)
+    top["ln_f"] = (d,)
+    return top
 
 
 def _to_torch(x: np.ndarray) -> torch.Tensor:
@@ -63,7 +90,6 @@ def _convert(tree, shapes, device, path: Tuple[str, ...]):
 
 def params_from_jax(params_np, cfg: ModelConfig, device="cuda"):
     """JAX param pytree (numpy leaves) -> the port's params on ``device``."""
-    if cfg.family not in PORTED:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1, item 8)")
+    shapes = param_shapes(cfg)
     device = resolve_device(device)
-    return _convert(params_np, param_shapes(cfg), device, ())
+    return _convert(params_np, shapes, device, ())

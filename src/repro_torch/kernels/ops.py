@@ -51,13 +51,13 @@ def flash_attention(
 # =============================== paged decode attention ===============================
 def paged_attention(
     q: torch.Tensor,  # (B, H, D) -- one query token per sequence
-    pool_k: torch.Tensor,  # (P_local, T, K, D) -- bf16/f32
+    pool_k: torch.Tensor,  # (P_local, T, K, D) -- bf16/f32, or int8 with scales
     pool_v: torch.Tensor,
     tables: torch.Tensor,  # (B, R) global page ids
     page_pos: torch.Tensor,  # (B, R) absolute position of slot 0 of each page
     lengths: torch.Tensor,  # (B,) tokens cached (incl. the one just written)
     *,
-    scale_k: Optional[torch.Tensor] = None,
+    scale_k: Optional[torch.Tensor] = None,  # (P_local, T, K) f32 for int8 pools
     scale_v: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
     page_offset: int = 0,
@@ -66,12 +66,14 @@ def paged_attention(
 ) -> torch.Tensor:
     """Decode attention over the paged pool (the paper's striped-page READ):
     the kernel's unnormalised ``(o, m, l)`` become ``o / max(l, 1e-30)`` in
-    q's dtype."""
+    q's dtype. An int8 pool (with its per-token scales) is dequantized to
+    bf16 first, as the JAX wrapper does, and the kernel reads that."""
     _check_impl(impl)
-    if pool_k.dtype == torch.int8 or scale_k is not None or scale_v is not None:
-        raise NotImplementedError(
-            "int8 KV pools are not ported yet (ROADMAP Queue 1, item 6)"
-        )
+    if pool_k.dtype == torch.int8:
+        if scale_k is None or scale_v is None:
+            raise ValueError("an int8 pool needs scale_k and scale_v")
+        pool_k = dequantize_pool(pool_k, scale_k)
+        pool_v = dequantize_pool(pool_v, scale_v)
     if axis_names:
         raise NotImplementedError(
             "the split-K combine across pool shards is not ported yet (ROADMAP Queue 1, item 9)"
@@ -88,12 +90,24 @@ def paged_attention(
     return (o / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
-def quantize_token(x):
-    raise NotImplementedError("int8 KV quantization is not ported yet (ROADMAP Queue 1, item 6)")
+INT8_MAX = 127.0
 
 
-def dequantize_pool(pool, scale):
-    raise NotImplementedError("int8 KV dequantization is not ported yet (ROADMAP Queue 1, item 6)")
+def quantize_token(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, kv-head) symmetric int8 quantization: x (..., K, D) ->
+    (q int8 (..., K, D), scale f32 (..., K)); round half to even, as
+    ``jnp.round``. Bit-equal to the JAX version, on the CPU and on a card."""
+    xf = x.float()
+    # a tensor divisor: CUDA divides by a Python scalar as a multiplication
+    # by its reciprocal, which can round the scale differently
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-8) / torch.full((), INT8_MAX, device=x.device)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_pool(pool: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(P, T, K, D) int8 x (P, T, K) f32 -> bf16."""
+    return (pool.float() * scale[..., None]).to(torch.bfloat16)
 
 
 # =============================== paged cache update ===============================
@@ -106,23 +120,25 @@ def paged_update(
     new_k: torch.Tensor,  # (B, K, D) -- pre-rotated
     new_v: torch.Tensor,
     *,
-    scale_k: Optional[torch.Tensor] = None,
+    scale_k: Optional[torch.Tensor] = None,  # (P_local, T, K) f32 for int8 pools
     scale_v: Optional[torch.Tensor] = None,
     page_offset: int = 0,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, ...]:
     """Append one token per sequence (the paper's page WRITE).
 
     Unlike the JAX version, which returns new arrays, this writes ``pool_k``
-    and ``pool_v`` IN PLACE and returns them with a new ``page_pos``. Rows
-    whose target page is not local to ``[0, P_local)`` are dropped (the JAX
-    version makes them positive out-of-bounds ids for its dropping scatter;
-    a torch index would wrap a negative id or fault on a large one), which
-    costs one host synchronisation to select the kept rows.
+    and ``pool_v`` IN PLACE and returns them with a new ``page_pos``: an
+    int8 pool gets the token quantized, its scales written in place into
+    ``scale_k``/``scale_v``, and returns ``(pool_k, pool_v, page_pos,
+    scale_k, scale_v)``. Rows whose target page is not local to
+    ``[0, P_local)`` are dropped (the JAX version makes them positive
+    out-of-bounds ids for its dropping scatter; a torch index would wrap a
+    negative id or fault on a large one), which costs one host
+    synchronisation to select the kept rows.
     """
-    if pool_k.dtype == torch.int8 or scale_k is not None or scale_v is not None:
-        raise NotImplementedError(
-            "int8 KV pools are not ported yet (ROADMAP Queue 1, item 6)"
-        )
+    quant = pool_k.dtype == torch.int8
+    if quant and (scale_k is None or scale_v is None):
+        raise ValueError("an int8 pool needs scale_k and scale_v")
     P_loc, T, K, D = pool_k.shape
     B, R = tables.shape
     pos = lengths.long()  # 0-indexed position of the incoming token
@@ -131,12 +147,23 @@ def paged_update(
     b_idx = torch.arange(B, device=tables.device)
     local = tables[b_idx, r].long() - page_offset
     rows = ((local >= 0) & (local < P_loc)).nonzero().squeeze(1)  # the one host sync
-    pool_k[local[rows], slot[rows]] = new_k[rows].to(pool_k.dtype)
-    pool_v[local[rows], slot[rows]] = new_v[rows].to(pool_v.dtype)
+    page, slot_r = local[rows], slot[rows]
+    if quant:
+        qk, sk = quantize_token(new_k[rows])
+        qv, sv = quantize_token(new_v[rows])
+        pool_k[page, slot_r] = qk
+        pool_v[page, slot_r] = qv
+        scale_k[page, slot_r] = sk
+        scale_v[page, slot_r] = sv
+    else:
+        pool_k[page, slot_r] = new_k[rows].to(pool_k.dtype)
+        pool_v[page, slot_r] = new_v[rows].to(pool_v.dtype)
     # recycling a ring page: its slot-0 absolute position becomes pos
     new_base = torch.where(slot == 0, pos.to(page_pos.dtype), page_pos[b_idx, r])
     page_pos = page_pos.clone()
     page_pos[b_idx, r] = new_base
+    if quant:
+        return pool_k, pool_v, page_pos, scale_k, scale_v
     return pool_k, pool_v, page_pos
 
 

@@ -72,7 +72,7 @@ def attention_train(
 
 # ------------------------------- paged decode --------------------------------
 
-CacheLayer = Dict[str, torch.Tensor]  # pool_k, pool_v, tables, page_pos
+CacheLayer = Dict[str, torch.Tensor]  # pool_k, pool_v, tables, page_pos[, scale_k, scale_v]
 
 
 def attention_decode(
@@ -85,18 +85,27 @@ def attention_decode(
     impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, CacheLayer]:
     """One decode step: append this token's K/V (paper WRITE, in place into
-    the cache's pools), then attend over the paged pool (paper READ)."""
+    the cache's pools, and into its scales for an int8 pool), then attend
+    over the paged pool (paper READ)."""
     q, k, v = qkv(params, x, cfg, lengths[:, None])
     q1, k1, v1 = q[:, 0], k[:, 0], v[:, 0]  # (B, H/K, hd)
-    pool_k, pool_v, page_pos = ops.paged_update(
+    quant = cache["pool_k"].dtype == torch.int8
+    sk, sv = cache.get("scale_k"), cache.get("scale_v")
+    out = ops.paged_update(
         cache["pool_k"], cache["pool_v"], cache["tables"], cache["page_pos"], lengths, k1, v1,
-        scale_k=cache.get("scale_k"), scale_v=cache.get("scale_v"),
+        scale_k=sk, scale_v=sv,
     )
+    if quant:
+        pool_k, pool_v, page_pos, sk, sv = out
+    else:
+        pool_k, pool_v, page_pos = out
     o = ops.paged_attention(
         q1, pool_k, pool_v, cache["tables"], page_pos, lengths + 1,
-        window=cfg.sliding_window, impl=impl,
+        scale_k=sk, scale_v=sv, window=cfg.sliding_window, impl=impl,
     )
     new_cache = dict(cache, pool_k=pool_k, pool_v=pool_v, page_pos=page_pos)
+    if quant:
+        new_cache.update(scale_k=sk, scale_v=sv)
     return out_proj(params, o[:, None], cfg), new_cache
 
 
@@ -113,12 +122,11 @@ def init_decode_cache(
 
     With a sliding window the per-sequence ring is only ``window/T + 1`` pages
     (rolling buffer); otherwise ``seq_len/T`` pages. Returns (cache, lengths);
-    each cache leaf is stacked over layers: pool_k (L, P, T, K, hd).
+    each cache leaf is stacked over layers: pool_k (L, P, T, K, hd), and
+    for int8 pools the f32 dequant scales scale_k/scale_v (L, P, T, K).
     """
     T = cfg.kv_page_tokens
     dtype = dtype or cfg.kvdtype()
-    if dtype == torch.int8:
-        raise NotImplementedError("int8 KV pools are not ported yet (ROADMAP Queue 1, item 6)")
     if cfg.sliding_window is not None and cfg.sliding_window < seq_len:
         ring = cfg.sliding_window // T + 1
     else:
@@ -133,5 +141,8 @@ def init_decode_cache(
         "tables": tables[None].repeat(n_layers, 1, 1),
         "page_pos": page_pos[None].repeat(n_layers, 1, 1),
     }
+    if dtype == torch.int8:  # per-(page, token, kv-head) dequant scales
+        cache["scale_k"] = torch.zeros((n_layers, n_pages, T, K), dtype=torch.float32, device=device)
+        cache["scale_v"] = torch.zeros((n_layers, n_pages, T, K), dtype=torch.float32, device=device)
     lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
     return cache, lengths

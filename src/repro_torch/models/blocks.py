@@ -1,6 +1,7 @@
-"""Pre-norm transformer block, dense or MoE, the counterpart of the dense /
-moe branch of :mod:`repro.models.blocks`. The JAX package's ``lax.scan``
-over stacked layers becomes a Python loop in :mod:`repro_torch.models.lm`."""
+"""Pre-norm blocks, the counterpart of :mod:`repro.models.blocks`: the
+transformer block (dense or MoE) and the Mamba2 block. The JAX package's
+``lax.scan`` over stacked layers becomes a Python loop in
+:mod:`repro_torch.models.lm`."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import mlp, rmsnorm
 from repro_torch.models.modules import dense_init
@@ -62,3 +64,22 @@ def block_decode(
     x = x + a
     f, _ = _ffn(params["ffn"], rmsnorm(x, params["ln2"]), cfg)
     return x + f, cache
+
+
+# ------------------------------ ssm block ------------------------------
+def ssm_block_init(gen: torch.Generator, cfg: ModelConfig):
+    return {"ln": torch.ones((cfg.d_model,), dtype=cfg.pdtype(), device=gen.device),
+            "ssm": ssm_mod.ssm_init(gen, cfg)}
+
+
+def ssm_block_apply(params, x: torch.Tensor, cfg: ModelConfig, *, return_state: bool = False):
+    """x + mixer(norm(x)); with ``return_state`` also the mixer's state for decode."""
+    if not return_state:
+        return x + ssm_mod.ssm_forward(params["ssm"], rmsnorm(x, params["ln"]), cfg)
+    y, state = ssm_mod.ssm_forward(params["ssm"], rmsnorm(x, params["ln"]), cfg, return_state=True)
+    return x + y, state
+
+
+def ssm_block_decode(params, x: torch.Tensor, state: ssm_mod.SSMState, cfg: ModelConfig):
+    y, state = ssm_mod.ssm_decode(params["ssm"], rmsnorm(x, params["ln"]), state, cfg)
+    return x + y, state

@@ -1,18 +1,21 @@
-"""Top-level decoder LM, the serving half of :mod:`repro.models.lm`.
+"""Top-level models, one constructor per family: the serving half of
+:mod:`repro.models.lm`.
 
 ``build_model(cfg)`` returns a :class:`Model` of plain functions:
 
 * ``init(seed=0, device="cuda", dtype=None) -> params`` -- nested dicts with
-  the JAX package's layout, per-layer leaves stacked ``(L, ...)`` under
-  ``"blocks"``;
+  the JAX package's layout, per-layer leaves stacked ``(L, ...)`` (the
+  hybrid's Mamba2 layers ``(n_groups, per_group, ...)``);
 * ``prefill(params, inputs, impl=None) -> (logits, cache)``, ``inputs``
   tokens ``(B, S)`` or embeddings ``(B, S, d)``;
 * ``decode_step(params, cache, tokens, impl=None) -> (logits, cache)``, which
-  writes the new token's K/V into the cache's pools in place;
+  writes the new token's K/V (and an int8 pool's scales) into the cache's
+  pools and the new SSM states into its state stacks, in place;
 * ``init_cache(batch, seq_len, device="cuda") -> cache``.
 
 Families ``dense``, ``moe`` and ``vlm`` (the decoder with an embeddings
-input). Serving only: no training loss and no autograd.
+input), ``ssm`` (Mamba2) and ``hybrid`` (Mamba2 groups with one shared
+attention block after each). Serving only: no training loss and no autograd.
 """
 
 from __future__ import annotations
@@ -26,12 +29,18 @@ from repro_torch import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks as B
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed, rmsnorm, unembed
 from repro_torch.models.modules import embed_init
 
-PORTED = ("dense", "moe", "vlm")  # the decoder families, all served by _decoder_lm
-_NOT_PORTED = ("ssm", "hybrid", "encdec", "audio")
+PORTED = ("dense", "moe", "vlm", "ssm", "hybrid")
+_NOT_PORTED = ("encdec", "audio")
+
+# leaves the JAX package uses in f32 whatever the compute dtype: the MoE
+# router (gates in f32), the SSM decay, skip and dt bias (used uncast), and
+# the gated norm's scale (applied in f32)
+_F32_LEAVES = ("router", "A_log", "D", "dt_bias", "norm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,30 +53,31 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     fam = cfg.family
-    if fam in PORTED:
+    if fam in ("dense", "moe", "vlm"):
         return _decoder_lm(cfg)
+    if fam == "ssm":
+        return _ssm_lm(cfg)
+    if fam == "hybrid":
+        return _hybrid_lm(cfg)
     if fam in _NOT_PORTED:
         raise NotImplementedError(f"family {fam!r} is not ported yet (ROADMAP Queue 1, item 8)")
     raise ValueError(f"unknown family {fam}")
 
 
 def serving_params(params, cfg: ModelConfig):
-    """The weights held for serving: every block weight and the final norm in
+    """The weights held for serving: every leaf but the embedding table in
     the compute dtype (the JAX package casts them on every use, so the
-    numbers are the same), except the MoE router, which stays f32 as the
-    gates are computed from it in f32; the tied embedding table left in
+    numbers are the same), except the leaves it uses in f32
+    (``_F32_LEAVES``), which stay f32; the tied embedding table left in
     ``param_dtype`` for the f32 unembedding. A leaf already in its serving
     dtype is kept, not copied."""
     ct = cfg.cdtype()
-    return {
-        "embed": params["embed"],
-        "blocks": _tree_map(lambda key, t: t.to(_serving_dtype(key, ct)), params["blocks"]),
-        "ln_f": params["ln_f"].to(ct),
-    }
+    return {k: v if k == "embed" else _tree_map(lambda key, t: t.to(_serving_dtype(key, ct)), v)
+            for k, v in params.items()}
 
 
 def _serving_dtype(key: str, dtype: torch.dtype) -> torch.dtype:
-    return torch.float32 if key == "router" else dtype
+    return torch.float32 if key in _F32_LEAVES else dtype
 
 
 def _tree_map(fn, tree, key: str = ""):
@@ -81,36 +91,100 @@ def _layer(blocks, i: int):
     return _tree_map(lambda _, t: t[i], blocks)
 
 
+def _stack_init(gen: torch.Generator, n_layers: int, init_one, dtype: Optional[torch.dtype]):
+    """``n_layers`` draws of ``init_one(gen)`` stacked ``(n_layers, ...)``.
+    Each stacked leaf is allocated once and filled layer by layer, so the
+    peak is the stacked weights plus one layer as drawn; with ``dtype`` the
+    leaves are stored in it (``_F32_LEAVES`` in f32)."""
+    stacked = None
+    for i in range(n_layers):
+        layer = init_one(gen)
+        if stacked is None:
+            stacked = _tree_map(
+                lambda key, t: torch.empty((n_layers, *t.shape), device=t.device,
+                                           dtype=_serving_dtype(key, dtype) if dtype else t.dtype),
+                layer)
+        _copy_layer(stacked, layer, i)
+        del layer
+    return stacked
+
+
+def _copy_layer(stacked, layer, i: int) -> None:
+    """stacked[...][i] = layer[...], leaf by leaf (casting to the stack's dtype)."""
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            _copy_layer(stacked[k], v, i)
+        else:
+            stacked[k][i].copy_(v)
+
+
+def _generator(seed: int, device) -> torch.Generator:
+    gen = torch.Generator(device=resolve_device(device))
+    gen.manual_seed(seed)
+    return gen
+
+
+def _inputs_to_h(params, inputs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Tokens (B, S), or embeddings (B, S, d) as a floating tensor."""
+    if inputs.is_floating_point():
+        return inputs.to(cfg.cdtype())
+    return embed(params["embed"], inputs, cfg)
+
+
 def _pool_cache(cfg: ModelConfig, pool_k, pool_v, tables, page_pos) -> Dict[str, torch.Tensor]:
+    """Assemble a paged-cache dict, quantizing the pools to int8 (per-token
+    scales) when the config asks for it."""
     dt = cfg.kvdtype()
     if dt == torch.int8:
-        raise NotImplementedError("int8 KV pools are not ported yet (ROADMAP Queue 1, item 6)")
+        qk, sk = ops.quantize_token(pool_k)
+        qv, sv = ops.quantize_token(pool_v)
+        return {"pool_k": qk, "pool_v": qv, "scale_k": sk, "scale_v": sv,
+                "tables": tables, "page_pos": page_pos}
     return {"pool_k": pool_k.to(dt), "pool_v": pool_v.to(dt),
             "tables": tables, "page_pos": page_pos}
+
+
+def _paged_cache(cfg: ModelConfig, ks, vs) -> Dict[str, torch.Tensor]:
+    """Each attention layer's prefill K/V laid out as pages with one
+    headroom page per sequence, stacked over layers."""
+    paged = [ops.prefill_into_pages(k, v, cfg.kv_page_tokens, extra_pages=1) for k, v in zip(ks, vs)]
+    pool_k, pool_v, tables, page_pos = (torch.stack(parts) for parts in zip(*paged))
+    return _pool_cache(cfg, pool_k, pool_v, tables, page_pos)
+
+
+def _lengths(Bb: int, S: int, device) -> torch.Tensor:
+    return torch.full((Bb,), S, dtype=torch.int32, device=device)
+
+
+def _attn_decode(params, h, kv, i: int, lengths, cfg: ModelConfig, impl):
+    """Attention layer ``i`` of a stacked paged cache, one decode step.
+    Pools and int8 scales are written in place through the layer's views;
+    returns (h, the layer's new page_pos)."""
+    layer_cache = {name: t[i] for name, t in kv.items()}
+    h, new = B.block_decode(params, h, layer_cache, lengths, cfg, impl=impl)
+    return h, new["page_pos"]
+
+
+def _ssm_decode(params, h, states, i: int, cfg: ModelConfig):
+    """Mamba2 layer ``i`` one decode step, its new state written in place
+    into the stacked ``states``."""
+    h, new = B.ssm_block_decode(params, h, {name: t[i] for name, t in states.items()}, cfg)
+    for name, t in states.items():
+        t[i].copy_(new[name])
+    return h
 
 
 # ================================ decoder-only ================================
 def _decoder_lm(cfg: ModelConfig) -> Model:
     def init(seed: int = 0, device="cuda", dtype: Optional[torch.dtype] = None):
-        """Random weights from ``seed``. Each stacked block leaf is allocated
-        once and filled layer by layer, so the peak is the stacked weights
-        plus one layer as drawn. With ``dtype`` (for serving: the compute
+        """Random weights from ``seed``, drawn layer by layer (see
+        :func:`_stack_init`). With ``dtype`` (for serving: the compute
         dtype) the block weights and the final norm are stored in it, the
         MoE router excepted, so that :func:`serving_params` copies nothing;
         the values are those of the default init cast to ``dtype``."""
-        gen = torch.Generator(device=resolve_device(device))
-        gen.manual_seed(seed)
+        gen = _generator(seed, device)
         table = embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.pdtype())
-        blocks = None
-        for i in range(cfg.n_layers):
-            layer = B.block_init(gen, cfg)
-            if blocks is None:
-                blocks = _tree_map(
-                    lambda key, t: torch.empty((cfg.n_layers, *t.shape), device=t.device,
-                                               dtype=_serving_dtype(key, dtype) if dtype else t.dtype),
-                    layer)
-            _copy_layer(blocks, layer, i)
-            del layer
+        blocks = _stack_init(gen, cfg.n_layers, lambda g: B.block_init(g, cfg), dtype)
         ln_f = torch.ones((cfg.d_model,), dtype=dtype or cfg.pdtype(), device=gen.device)
         return {"embed": {"table": table}, "blocks": blocks, "ln_f": ln_f}
 
@@ -126,11 +200,8 @@ def _decoder_lm(cfg: ModelConfig) -> Model:
         embeddings (B, S, d) (a floating tensor); S a multiple of
         ``kv_page_tokens``. Returns the last position's f32 logits
         (B, padded_vocab) and a paged cache with one headroom page per
-        sequence."""
-        if inputs.is_floating_point():
-            h = inputs.to(cfg.cdtype())
-        else:
-            h = embed(params["embed"], inputs, cfg)
+        sequence (int8 pools quantized here, for an int8 config)."""
+        h = _inputs_to_h(params, inputs, cfg)
         Bb, S = h.shape[:2]
         ks, vs = [], []
         for i in range(cfg.n_layers):
@@ -139,38 +210,144 @@ def _decoder_lm(cfg: ModelConfig) -> Model:
             vs.append(v)
         h = rmsnorm(h, params["ln_f"])
         logits = unembed(params["embed"], h[:, -1:], cfg)[:, 0]
-        paged = [ops.prefill_into_pages(k, v, cfg.kv_page_tokens, extra_pages=1)
-                 for k, v in zip(ks, vs)]
-        pool_k, pool_v, tables, page_pos = (torch.stack(parts) for parts in zip(*paged))
-        cache = {
-            "kv": _pool_cache(cfg, pool_k, pool_v, tables, page_pos),
-            "lengths": torch.full((Bb,), S, dtype=torch.int32, device=h.device),
-        }
-        return logits, cache
+        return logits, {"kv": _paged_cache(cfg, ks, vs), "lengths": _lengths(Bb, S, h.device)}
 
     @torch.no_grad()
     def decode_step(params, cache, tokens: torch.Tensor, impl: Optional[str] = None):
-        """tokens (B,). Appends each sequence's token to the pools in place."""
+        """tokens (B,). Appends each sequence's token to the pools in place
+        (an int8 pool's scales too, so they come back updated in place); only
+        ``page_pos`` is re-stacked."""
         h = embed(params["embed"], tokens[:, None], cfg)
-        lengths = cache["lengths"]
-        kv = cache["kv"]
+        lengths, kv = cache["lengths"], cache["kv"]
         page_pos = []
         for i in range(cfg.n_layers):
-            layer_cache = {name: t[i] for name, t in kv.items()}
-            h, new = B.block_decode(_layer(params["blocks"], i), h, layer_cache, lengths, cfg, impl=impl)
-            page_pos.append(new["page_pos"])
+            h, pp = _attn_decode(_layer(params["blocks"], i), h, kv, i, lengths, cfg, impl)
+            page_pos.append(pp)
         h = rmsnorm(h, params["ln_f"])
         logits = unembed(params["embed"], h, cfg)[:, 0]
-        new_kv = dict(kv, page_pos=torch.stack(page_pos))
-        return logits, {"kv": new_kv, "lengths": lengths + 1}
+        return logits, {"kv": dict(kv, page_pos=torch.stack(page_pos)), "lengths": lengths + 1}
 
     return Model(init, prefill, decode_step, init_cache)
 
 
-def _copy_layer(stacked, layer, i: int) -> None:
-    """stacked[...][i] = layer[...], leaf by leaf (casting to the stack's dtype)."""
-    for k, v in layer.items():
-        if isinstance(v, dict):
-            _copy_layer(stacked[k], v, i)
-        else:
-            stacked[k][i].copy_(v)
+# ================================ pure SSM (mamba2) ================================
+def _ssm_prefill_layer(lp, h, states, i: int, cfg: ModelConfig):
+    """Mamba2 layer ``i`` over the whole sequence; its final state and conv
+    tail (the JAX package's ``_ssm_forward_with_state``) go into the stacked
+    ``states``."""
+    h, st = B.ssm_block_apply(lp, h, cfg, return_state=True)
+    for name, t in states.items():
+        t[i].copy_(st[name])
+    return h
+
+
+def _ssm_lm(cfg: ModelConfig) -> Model:
+    def init(seed: int = 0, device="cuda", dtype: Optional[torch.dtype] = None):
+        """As the decoder's init: blocks drawn layer by layer, straight into
+        ``dtype`` when given (``A_log``, ``D``, ``dt_bias`` and the gated
+        norm's scale in f32)."""
+        gen = _generator(seed, device)
+        table = embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.pdtype())
+        blocks = _stack_init(gen, cfg.n_layers, lambda g: B.ssm_block_init(g, cfg), dtype)
+        ln_f = torch.ones((cfg.d_model,), dtype=dtype or cfg.pdtype(), device=gen.device)
+        return {"embed": {"table": table}, "blocks": blocks, "ln_f": ln_f}
+
+    def init_cache(batch: int, seq_len: int, device="cuda"):
+        dev = resolve_device(device)
+        return {"ssm": ssm_mod.init_ssm_state(cfg, batch, cfg.n_layers, device=dev),
+                "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+    @torch.no_grad()
+    def prefill(params, inputs: torch.Tensor, impl: Optional[str] = None):
+        """Returns the last position's f32 logits and a cache of the f32
+        SSM states ``{"ssm": (L, B, H, N, P), "conv": (L, B, Kc-1, C)}``.
+        No attention: ``impl`` is taken for the common signature."""
+        h = _inputs_to_h(params, inputs, cfg)
+        Bb, S = h.shape[:2]
+        states = ssm_mod.init_ssm_state(cfg, Bb, cfg.n_layers, device=h.device)
+        for i in range(cfg.n_layers):
+            h = _ssm_prefill_layer(_layer(params["blocks"], i), h, states, i, cfg)
+        h = rmsnorm(h, params["ln_f"])
+        logits = unembed(params["embed"], h[:, -1:], cfg)[:, 0]
+        return logits, {"ssm": states, "lengths": _lengths(Bb, S, h.device)}
+
+    @torch.no_grad()
+    def decode_step(params, cache, tokens: torch.Tensor, impl: Optional[str] = None):
+        """tokens (B,). Updates the cache's SSM states in place."""
+        h = embed(params["embed"], tokens[:, None], cfg)
+        states = cache["ssm"]
+        for i in range(cfg.n_layers):
+            h = _ssm_decode(_layer(params["blocks"], i), h, states, i, cfg)
+        h = rmsnorm(h, params["ln_f"])
+        logits = unembed(params["embed"], h, cfg)[:, 0]
+        return logits, {"ssm": dict(states), "lengths": cache["lengths"] + 1}
+
+    return Model(init, prefill, decode_step, init_cache)
+
+
+# ================================ hybrid (zamba2) ================================
+def _hybrid_lm(cfg: ModelConfig) -> Model:
+    n_groups = cfg.n_layers // cfg.attn_every
+    per_group = cfg.attn_every
+
+    def init(seed: int = 0, device="cuda", dtype: Optional[torch.dtype] = None):
+        """The Mamba2 stack drawn layer by layer and viewed as
+        ``(n_groups, per_group, ...)``, then ONE shared attention block."""
+        gen = _generator(seed, device)
+        table = embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.pdtype())
+        mamba = _stack_init(gen, cfg.n_layers, lambda g: B.ssm_block_init(g, cfg), dtype)
+        mamba = _tree_map(lambda _, t: t.reshape(n_groups, per_group, *t.shape[1:]), mamba)
+        shared = B.block_init(gen, cfg)
+        if dtype:
+            shared = _tree_map(lambda key, t: t.to(_serving_dtype(key, dtype)), shared)
+        ln_f = torch.ones((cfg.d_model,), dtype=dtype or cfg.pdtype(), device=gen.device)
+        return {"embed": {"table": table}, "mamba": mamba, "shared_attn": shared, "ln_f": ln_f}
+
+    def init_cache(batch: int, seq_len: int, device="cuda"):
+        dev = resolve_device(device)
+        kv, lengths = attn.init_decode_cache(cfg, batch, seq_len, n_groups, device=dev)
+        return {"ssm": ssm_mod.init_ssm_state(cfg, batch, cfg.n_layers, device=dev),
+                "kv": kv, "lengths": lengths}
+
+    @torch.no_grad()
+    def prefill(params, inputs: torch.Tensor, impl: Optional[str] = None):
+        """Each group's Mamba2 layers, then the shared block (flash
+        attention), whose K/V become that group's paged KV layer. Returns
+        the last position's f32 logits and ``{"ssm": (L, ...) states, "kv":
+        n_groups paged layers, "lengths"}``; S a multiple of
+        ``kv_page_tokens``."""
+        h = _inputs_to_h(params, inputs, cfg)
+        Bb, S = h.shape[:2]
+        states = ssm_mod.init_ssm_state(cfg, Bb, cfg.n_layers, device=h.device)
+        ks, vs = [], []
+        for g in range(n_groups):
+            group = _layer(params["mamba"], g)
+            for j in range(per_group):
+                h = _ssm_prefill_layer(_layer(group, j), h, states, g * per_group + j, cfg)
+            h, _, (k, v) = B.block_apply(params["shared_attn"], h, cfg, return_kv=True, impl=impl)
+            ks.append(k)
+            vs.append(v)
+        h = rmsnorm(h, params["ln_f"])
+        logits = unembed(params["embed"], h[:, -1:], cfg)[:, 0]
+        cache = {"ssm": states, "kv": _paged_cache(cfg, ks, vs), "lengths": _lengths(Bb, S, h.device)}
+        return logits, cache
+
+    @torch.no_grad()
+    def decode_step(params, cache, tokens: torch.Tensor, impl: Optional[str] = None):
+        """tokens (B,). SSM states, pools (and int8 scales) updated in
+        place; ``page_pos`` re-stacked."""
+        h = embed(params["embed"], tokens[:, None], cfg)
+        lengths, kv, states = cache["lengths"], cache["kv"], cache["ssm"]
+        page_pos = []
+        for g in range(n_groups):
+            group = _layer(params["mamba"], g)
+            for j in range(per_group):
+                h = _ssm_decode(_layer(group, j), h, states, g * per_group + j, cfg)
+            h, pp = _attn_decode(params["shared_attn"], h, kv, g, lengths, cfg, impl)
+            page_pos.append(pp)
+        h = rmsnorm(h, params["ln_f"])
+        logits = unembed(params["embed"], h, cfg)[:, 0]
+        return logits, {"ssm": dict(states), "kv": dict(kv, page_pos=torch.stack(page_pos)),
+                        "lengths": lengths + 1}
+
+    return Model(init, prefill, decode_step, init_cache)

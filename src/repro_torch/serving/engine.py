@@ -109,6 +109,17 @@ class ServingEngine:
         kv_client: Optional[BlobKVClient] = None,
         device="cuda",
     ) -> None:
+        if cfg.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"family {cfg.family!r} is served through the model API only (build_model): the "
+                "engine's decode cache carries no SSM state, as the JAX package's engine's does not"
+            )
+        if cfg.kvdtype() == torch.int8:
+            # the engine scatters raw prefill pages, so it keeps bf16 pools,
+            # as the JAX engine does; its model must then hand it the K/V
+            # unquantized (int8 codes written into a bf16 pool would be read
+            # as values)
+            cfg = dataclasses.replace(cfg, kv_cache_dtype="bfloat16")
         self.device = resolve_device(device)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
@@ -136,12 +147,9 @@ class ServingEngine:
             self.alloc = PagedKVAllocator(n_pages, self.T)
         self._rng = np.random.default_rng(rng_seed)
 
-        L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        L = self._n_attn_layers()
+        K, hd = cfg.n_kv_heads, cfg.head_dim
         dt = cfg.kvdtype()
-        if dt == torch.int8:
-            # the engine scatters raw prefill pages; int8 pools would need a
-            # quantizing scatter here -- keep bf16, as the JAX engine does
-            dt = torch.bfloat16
         self.n_pool_pages = n_pages
         self.pool_k = torch.zeros((L, n_pages, self.T, K, hd), dtype=dt, device=self.device)
         self.pool_v = torch.zeros((L, n_pages, self.T, K, hd), dtype=dt, device=self.device)
@@ -149,6 +157,15 @@ class ServingEngine:
         self._queue: "queue.Queue[Request]" = queue.Queue()
         self._submitted: Dict[int, float] = {}
         self._done: Dict[int, Completion] = {}
+
+    def _n_attn_layers(self) -> int:
+        """Attention layers, one paged KV layer each (the JAX engine's count)."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            return cfg.n_layers // cfg.attn_every
+        if cfg.family in ("encdec", "audio"):
+            return cfg.n_dec_layers
+        return cfg.n_layers
 
     # ------------------------------ device steps ------------------------------
     def _copy_pages(self, copies: List[Tuple[int, int]]) -> None:

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card;
-and blob mode's pages through the card.
+blob mode's pages through the card; the Mamba2 layers, the ssm and hybrid
+smoke models and the int8 KV path on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips where there is no card. On a
 machine with one (and ``nvcc``; the kernels build on first use):
@@ -228,3 +229,142 @@ def test_blob_engines_on_the_card_match_the_host_allocator_engine(dev):
         assert blob.kv.stats["published_pages"] == 12  # 6 tails, 6 decode pages
     finally:
         cluster.close()
+
+
+# ------------------------------ state-space models, int8 KV ------------------------------
+def _smoke_on_both(arch, dev, **overrides):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+
+    cfg = dataclasses.replace(get_config(arch).smoke(), **overrides)
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cpu")
+    return cfg, model, params, _tree_to(params, dev)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _check_ssm_layer(dev):
+    """One Mamba2 mixer (f32; 40 tokens run SSD chunks of 10) over a whole
+    sequence with its state handoff, then two decode steps: the card's
+    result is the CPU's within 1e-4 (TF32 is off for matmuls by default)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    cfg = get_config("mamba2-370m").smoke()
+    params = ssm.ssm_init(torch.Generator().manual_seed(0), cfg)
+    card = _tree_to(params, dev)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal((2, 40, cfg.d_model), dtype=np.float32))
+    want, wstate = ssm.ssm_forward(params, x, cfg, return_state=True)
+    got, gstate = ssm.ssm_forward(card, x.to(dev), cfg, return_state=True)
+    close(got, want, 1e-4)
+    for _ in range(2):
+        x1 = torch.randn((2, 1, cfg.d_model), generator=torch.Generator().manual_seed(8))
+        want, wstate = ssm.ssm_decode(params, x1, wstate, cfg)
+        got, gstate = ssm.ssm_decode(card, x1.to(dev), gstate, cfg)
+        close(got, want, 1e-4)
+        for name in ("ssm", "conv"):
+            close(gstate[name], wstate[name], 1e-4)
+
+
+def _check_smoke_model(dev, arch):
+    """The smoke model (f32, f32 pools) through prefill and three decode
+    steps on the card (zamba2's shared block on both CUDA kernels) against
+    the CPU (their plain versions): logits and SSM states within 1e-4."""
+    cfg, model, params, card = _smoke_on_both(arch, dev, kv_cache_dtype="float32")
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 40)))
+    n_flash, n_paged = flash_attention_cuda.launches, paged_attention_cuda.launches
+    want, wc = model.prefill(params, tokens)
+    got, gc = model.prefill(card, tokens.to(dev))
+    for step in range(4):
+        close(got, want, 1e-4)
+        for name in ("ssm", "conv"):
+            close(gc["ssm"][name], wc["ssm"][name], 1e-4)
+        if step < 3:
+            nxt = want.argmax(-1)
+            want, wc = model.decode_step(params, wc, nxt)
+            got, gc = model.decode_step(card, gc, nxt.to(dev))
+    attn_layers = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    assert flash_attention_cuda.launches - n_flash == attn_layers
+    assert paged_attention_cuda.launches - n_paged == 3 * attn_layers
+
+
+def _check_int8_decode(dev):
+    """quantize_token on the card is the CPU's bit for bit (bf16 and f32
+    tokens); the int8-KV smoke model (mistral-large) prefills and decodes
+    three steps on the card, the paged kernel reading the dequantized pool:
+    int8 codes the CPU's or their neighbours, logits within 2e-3."""
+    from repro_torch.kernels import ops
+
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal((64, 16, 8, 128), dtype=np.float32) * 3)
+    for t in (x, x.to(torch.bfloat16)):
+        (wq, ws), (gq, gs) = ops.quantize_token(t), ops.quantize_token(t.to(dev))
+        assert torch.equal(gq.cpu(), wq) and torch.equal(gs.cpu(), ws)
+        assert torch.equal(ops.dequantize_pool(gq, gs).cpu(), ops.dequantize_pool(wq, ws))
+
+    cfg, model, params, card = _smoke_on_both("mistral-large-123b", dev)
+    tokens = torch.from_numpy(np.random.default_rng(11).integers(0, cfg.vocab_size, (2, 24)))
+    n_paged = paged_attention_cuda.launches
+    want, wc = model.prefill(params, tokens)
+    got, gc = model.prefill(card, tokens.to(dev))
+    for step in range(4):
+        close(got, want, 2e-3)
+        for name in ("pool_k", "pool_v"):
+            d = (gc["kv"][name].cpu().int() - wc["kv"][name].int()).abs()
+            assert gc["kv"][name].dtype == torch.int8 and d.max() <= 1 and (d > 0).float().mean() <= 1e-3
+            close(gc["kv"]["scale_" + name[-1]], wc["kv"]["scale_" + name[-1]], 1e-4)
+        if step < 3:
+            nxt = want.argmax(-1)
+            want, wc = model.decode_step(params, wc, nxt)
+            got, gc = model.decode_step(card, gc, nxt.to(dev))
+    assert paged_attention_cuda.launches - n_paged == 3 * cfg.n_layers
+
+
+def _check_int8_update_syncs(dev):
+    """The int8 branch of ``paged_update`` (quantize, write codes and
+    scales) adds no host synchronisation to the one that selects the local
+    rows; counted by the sync debug mode's warnings."""
+    import warnings
+
+    from repro_torch.kernels import ops
+
+    B, T, K, D, R = 4, 16, 2, 64, 3
+    tables = torch.arange(B * R, dtype=torch.int32, device=dev).reshape(B, R)
+    tables[0] = B * R  # a row whose page is not local: dropped
+    page_pos = (torch.arange(R, dtype=torch.int32, device=dev) * T)[None].repeat(B, 1)
+    lengths = torch.tensor([3, 5, 17, 40], dtype=torch.int32, device=dev)
+    new = torch.randn((B, K, D), device=dev)
+    syncs = {}
+    for dtype in (torch.bfloat16, torch.int8):
+        pools = [torch.zeros((B * R, T, K, D), dtype=dtype, device=dev) for _ in range(2)]
+        kw = {}
+        if dtype == torch.int8:
+            kw = dict(scale_k=torch.zeros((B * R, T, K), device=dev), scale_v=torch.zeros((B * R, T, K), device=dev))
+        ops.paged_update(*pools, tables, page_pos, lengths, new, new, **kw)  # first call: set-up
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                ops.paged_update(*pools, tables, page_pos, lengths, new, new, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs[dtype] = sum("synchroniz" in str(w.message) for w in caught)
+    assert syncs[torch.int8] == syncs[torch.bfloat16] <= 1, syncs
+
+
+def test_state_space_layers_and_models_on_the_card_match_the_cpu(dev):
+    _check_ssm_layer(dev)
+    for arch in ("mamba2-370m", "zamba2-2.7b"):
+        _check_smoke_model(dev, arch)
+
+
+def test_int8_kv_on_the_card_matches_the_cpu(dev):
+    _check_int8_decode(dev)
+    _check_int8_update_syncs(dev)

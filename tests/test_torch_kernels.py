@@ -362,15 +362,114 @@ def test_flash_launch_plan_packs_the_heads_of_a_kv_head():
 
 
 def test_not_ported_branches_raise():
+    """The split-K combine across pool shards is still to port; an int8
+    pool without its scales is refused."""
     x = torch.zeros((1, 1, 1, 4))
     pool = torch.zeros((1, 1, 1, 4), dtype=torch.int8)
     t = torch.zeros((1, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="scale"):
         ops.paged_attention(x[0], pool, pool, t, t, t[0])
+    with pytest.raises(ValueError, match="scale"):
+        ops.paged_update(pool, pool, t, t, t[0], x[0], x[0])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ops.paged_attention(x[0], x, x, t, t, t[0], axis_names=("model",))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.quantize_token(x)
+
+
+# ------------------------------ int8 KV ------------------------------
+def int8_tokens(seed, shape):
+    """Random tokens (..., K, D) plus, in the first two, exact .5 ties (a
+    token whose largest |value| is 127 has scale exactly 1) and an
+    all-zero token (the 1e-8 floor)."""
+    x = np.random.default_rng(seed).standard_normal(shape, dtype=np.float32) * 3
+    D = shape[-1]
+    tie = np.resize(np.array([0.5, -0.5, 1.5, -2.5, 3.5, 126.5], np.float32), D)
+    tie[0] = 127.0
+    x.reshape(-1, D)[0] = tie
+    x.reshape(-1, D)[1] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_token_bit_equal_to_jax(dtype):
+    jx, tx = both(int8_tokens(31, (6, 8, 2, 32)), dtype)
+    want_q, want_s = jops.quantize_token(jx)
+    got_q, got_s = ops.quantize_token(tx)
+    assert got_q.dtype == torch.int8 and got_s.dtype == torch.float32
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(got_s.numpy().view(np.int32), np.asarray(want_s).view(np.int32))
+    flat_q, flat_s = got_q.reshape(-1, 32), got_s.reshape(-1)
+    assert flat_s[0] == 1.0 and flat_q[0, :6].tolist() == [127, 0, 2, -2, 4, 126]  # half to even
+    assert flat_s[1] == np.float32(1e-8) / np.float32(127.0) and not flat_q[1].any()
+
+
+def test_dequantize_pool_bit_equal_to_jax():
+    x = int8_tokens(32, (6, 8, 2, 32))
+    jq, js = jops.quantize_token(jnp.asarray(x))
+    want = jops.dequantize_pool(jq, js)
+    got = ops.dequantize_pool(torch.from_numpy(np.array(jq)), torch.from_numpy(np.array(js)))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(), np.asarray(want).view(np.int16))
+
+
+def test_int8_paged_update_matches_jax():
+    """14 appends wrap each row's 3-page ring (window 8, T 4); row 2's pages
+    are not local to the pool (dropped). Pools, scales and page_pos
+    bit-equal to JAX's after every step."""
+    B, T, K, D, R = 3, 4, 2, 16, 3
+    rng = np.random.default_rng(33)
+    q0, s0 = jops.quantize_token(jnp.asarray(rng.standard_normal((2 * R, T, K, D), dtype=np.float32)))
+    jst = [q0, q0, s0, s0]
+    tst = [torch.from_numpy(np.array(a)) for a in jst]
+    tables = np.array([[0, 1, 2], [3, 4, 5], [6, 7, 8]], np.int32)  # row 2: ids >= P = 6
+    jpp = jnp.asarray(np.repeat((np.arange(R, dtype=np.int32) * T)[None], B, axis=0))
+    tpp = torch.from_numpy(np.array(jpp))
+    for t in range(14):
+        nk = rng.standard_normal((B, K, D), dtype=np.float32)
+        nv = rng.standard_normal((B, K, D), dtype=np.float32)
+        length = np.array([t, t + 3, t], np.int32)
+        jk, jv, jpp, jsk, jsv = jops.paged_update(
+            jst[0], jst[1], jnp.asarray(tables), jpp, jnp.asarray(length), jnp.asarray(nk), jnp.asarray(nv),
+            scale_k=jst[2], scale_v=jst[3])
+        jst = [jk, jv, jsk, jsv]
+        tk, tv, tpp, tsk, tsv = ops.paged_update(
+            tst[0], tst[1], torch.from_numpy(tables), tpp, torch.from_numpy(length), torch.from_numpy(nk),
+            torch.from_numpy(nv), scale_k=tst[2], scale_v=tst[3])
+        assert tk is tst[0] and tsk is tst[2]  # in place
+        np.testing.assert_array_equal(tpp.numpy(), np.asarray(jpp))
+        for got, want in zip((tk, tv, tsk, tsv), jst):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("impl", [None, "ref"])
+def test_paged_attention_int8_matches_jax(impl):
+    """tests/test_kernels.py's int8 cases on the port: a quantized pool is
+    dequantized to bf16 and read by the kernel's plain version (CPU) or the
+    oracle; held to JAX's wrapper on the same pool (its Pallas kernel in
+    interpret mode, or its oracle) within the paged tolerance, and within 2%
+    of the f32 pool's attention. A token written through the int8
+    paged_update reads back within 1%."""
+    B, S, T, H, K, D = 2, 128, 16, 8, 2, 64
+    rng = np.random.default_rng(34)
+    k = rng.standard_normal((B, S, K, D), dtype=np.float32)
+    v = rng.standard_normal((B, S, K, D), dtype=np.float32)
+    q = rng.standard_normal((B, H, D), dtype=np.float32)
+    pool_k, pool_v, tables, page_pos = ops.prefill_into_pages(torch.from_numpy(k), torch.from_numpy(v), T)
+    lengths = torch.full((B,), S - 5, dtype=torch.int32)
+    fp = ref.paged_attention_ref(torch.from_numpy(q), pool_k, pool_v, tables, page_pos, lengths)
+    (qk, sk), (qv, sv) = ops.quantize_token(pool_k), ops.quantize_token(pool_v)
+    got = ops.paged_attention(torch.from_numpy(q), qk, qv, tables, page_pos, lengths,
+                              scale_k=sk, scale_v=sv, impl=impl)
+    j = lambda t: jnp.asarray(t.numpy())  # noqa: E731
+    want = jops.paged_attention(jnp.asarray(q), j(qk), j(qv), j(tables), j(page_pos), j(lengths),
+                                scale_k=j(sk), scale_v=j(sv), impl="pallas" if impl is None else "ref",
+                                interpret=True)
+    close(got, want, TOL["paged"]["float32"])
+    assert (got - fp).abs().max() / fp.abs().max() < 0.02
+
+    nk = torch.from_numpy(rng.standard_normal((B, K, D), dtype=np.float32))
+    ops.paged_update(qk, qv, tables, page_pos, lengths, nk, nk, scale_k=sk, scale_v=sv)
+    back = ops.dequantize_pool(qk, sk)[tables[:, (S - 5) // T], (S - 5) % T].float()
+    torch.testing.assert_close(back, nk, atol=nk.abs().max().item() / 100, rtol=0)
 
 
 # ------------------------------ flash attention ------------------------------

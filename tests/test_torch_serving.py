@@ -9,6 +9,7 @@ oracle here is the JAX engine with ``repro.kernels.ops.flash_attention`` and
 ``paged_attention`` forced onto the Pallas kernels in interpret mode
 (patched in this test only)."""
 
+import dataclasses
 import functools
 import importlib.util
 from pathlib import Path
@@ -235,3 +236,42 @@ def test_blob_mode_not_ported(setup):
     assert engine.alloc is None and engine.pool_k.shape[1] == 16
     for name in ("Federation", "FaultInjector", "BlobStore", "FlatView"):
         assert not hasattr(repro_torch.core, name)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
+def test_engine_refuses_the_state_space_families(arch):
+    """Neither engine serves ssm or hybrid: the JAX engine's decode cache
+    carries no SSM state. The port says so at construction; the families
+    are served through the model API."""
+    cfg = get_config(arch).smoke()
+    params = build_model(cfg).init(seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="SSM state"):
+        ServingEngine(cfg, params, device="cpu")
+
+
+def test_engine_pools_one_layer_per_attention_layer_and_int8_as_bf16():
+    """Pools are sized by attention layers, as the JAX engine sizes them
+    (zamba2-2.7b: 9 of its 54 layers). An int8-KV config (mistral-large)
+    gets bf16 engine pools, as in the JAX engine, holding the prefill's K/V
+    unquantized: its tokens are those of the same model with bf16 KV."""
+    from types import SimpleNamespace
+
+    for arch in ("zamba2-2.7b", "llama3_2-1b", "mixtral-8x7b"):
+        n = ServingEngine._n_attn_layers(SimpleNamespace(cfg=get_config(arch)))
+        assert n == JEngine._n_attn_layers(SimpleNamespace(cfg=jax_get_config(arch)))
+    assert ServingEngine._n_attn_layers(SimpleNamespace(cfg=get_config("zamba2-2.7b"))) == 9
+    cfg = get_config("mistral-large-123b").smoke()
+    assert cfg.kv_cache_dtype == "int8"
+    params = build_model(cfg).init(seed=0, device="cpu")
+    prompts = [list(range(1, 12)), list(range(40, 60))]
+    tokens = {}
+    for kv in ("int8", "bfloat16"):
+        engine = ServingEngine(dataclasses.replace(cfg, kv_cache_dtype=kv), params, max_slots=2, n_pages=16,
+                               device="cpu")
+        assert engine.pool_k.dtype == engine.pool_v.dtype == torch.bfloat16
+        assert engine.pool_k.shape == (cfg.n_layers, 16, cfg.kv_page_tokens, cfg.n_kv_heads, cfg.head_dim)
+        for i, p in enumerate(prompts):
+            engine.submit(Request(i, p, max_new_tokens=6))
+        done = engine.run_until_drained()
+        tokens[kv] = [done[i].tokens for i in range(len(prompts))]
+    assert tokens["int8"] == tokens["bfloat16"]
