@@ -16,8 +16,9 @@ JAX package), and it:
    and offset prompts, head dims 16 to 128 and the padded 80 and 120 in bf16
    and f32, mixtral-8x7b's long windowed decode and prefill shapes, and
    zamba2-2.7b's (MHA, head dim 80) and mistral-large-123b's (96 heads over
-   8 kv-heads) decode and prefill shapes), and
-   times the kernel, the plain
+   8 kv-heads) decode and prefill shapes, and seamless-m4t-medium's
+   non-causal encoder, cross-attention prefill and read-only cross decode
+   shapes), and times the kernel, the plain
    version and, where one exists, the single PyTorch call that computes the
    same function, and the kernels under other launch plans (the paged
    kernel's split count, the flash kernel's heads per CTA);
@@ -82,10 +83,22 @@ JAX package), and it:
     one int8 decode step and the same step over bf16 pools; holds
     ``quantize_token`` on the card to the CPU's bit for bit, and each
     layer's attention call and the logits as step 9 does;
-11. prints a JSON line with each kernel's launches, error, times and grid at
-    the main-path shape (and its times at the danube, mixtral, zamba2 and
-    mistral-large shapes, and its launches in steps 5-10), and, as the last
-    line, ``{"ok": true, "device": {...}}``.
+11. drives ``seamless-m4t-medium`` (the ``audio`` encoder-decoder: 12
+    encoder and 12 decoder layers, d_model 1024, 16 heads over 16 kv-heads
+    of 64, vocab 256206) at full width and depth, nothing cut, through the
+    model API (the engine refuses it): 8 rows of 2048 encoder frames and a
+    64-token decoder prompt, then 32 greedy decode steps; prints the
+    prefill's ms (36 flash calls), the median decode step (24 paged calls:
+    12 self, 12 read-only cross), tok/s, peak memory and the pools' bytes;
+    checks the cross pools come out of decode unchanged, holds every kernel
+    call of a one-row prefill and of a decode step to the plain version and
+    their logits to ``impl="ref"``, and an encode-only prefill's eighth
+    decode step to ``impl="ref"``;
+12. prints a JSON line with each kernel's launches, error, times and grid at
+    the main-path shape (and its times at the danube, mixtral, zamba2,
+    mistral-large and seamless shapes, and its launches in steps 5-11) and
+    step 11's measures, and, as the last line, ``{"ok": true, "device":
+    {...}}``.
 
 Any failure exits nonzero before the last line is printed.
 """
@@ -341,6 +354,8 @@ WINDOW = 4096  # mixtral-8x7b's (and h2o-danube-3-4b's) sliding window
 PROMPT = 2048  # steps 8-10: 8 rows of 2048-token prompts, then 32 decode steps
 N_DECODE = 32
 SSM_HYBRID_LENGTHS = [2049, 2053, 2058, 2062, 2067, 2071, 2076, 2080]  # those rows in decode
+ENC_FRAMES = 2048  # step 11: 8 rows of encoder frames, about 40 s of speech at 20 ms a frame
+DEC_PROMPT = 64  # step 11: a one-page decoder prompt
 
 
 def wide_head_cases(gen, errs) -> None:
@@ -362,20 +377,38 @@ def wide_head_cases(gen, errs) -> None:
             errs["flash_attention"] = max(errs["flash_attention"], check_flash(*args, f"{name}, {tag}"))
 
 
+def paged_row(gen, flush, tag, pk, n_sm) -> dict:
+    """The paged kernel's row of :func:`shape_rows` at the decode shape ``pk``."""
+    from repro_torch.kernels import paged_attention as pa
+
+    args, win = paged_case(gen, **pk)
+    q, pool_k, _, tables, _, _ = args
+    plan = pa.launch_plan(q.shape[0], q.shape[1], pool_k.shape[2], q.shape[2], tables.shape[1], n_sm)
+    row = dict(max_abs_err=check_paged(args, win, f"{tag} decode shape {pk}"),
+               ms=time_ms(lambda: pa.paged_attention_cuda(*args, window=win), flush=flush),
+               plain_ms=time_ms(lambda: pa.paged_attention_plain(*args, window=win), flush=flush),
+               library_ms=None, grid=list(plan.grid), head_chunk=plan.head_chunk,
+               n_splits=plan.n_splits)
+    row.update(zip(("bound_ms", "bound_by"), bound_ms(*paged_work(args, win))))
+    return row
+
+
 def shape_rows(gen, flush) -> dict:
     """Kernel, plain and library times, the bound and the launch plan at the
-    shapes of steps 6, 7, 9 and 10: h2o-danube-3-4b's (head dim 120, a
+    shapes of steps 6, 7 and 9-11: h2o-danube-3-4b's (head dim 120, a
     padded width), mixtral-8x7b's (8 rows of 4161-4192 tokens over 72-entry
     tables, and a 4160-token prompt, both under the 4096-token window),
     zamba2-2.7b's (MHA, 32 heads of 80: 8 rows of 2049-2080 tokens, 8
-    prompts of 2048) and mistral-large-123b's (96 heads over 8 kv-heads of
-    128; the paged kernel reads the bf16 pool an int8 pool dequantizes to).
-    Each is checked against the plain version first. The library call for
-    flash is SDPA (with the causal window as an explicit boolean mask where
-    there is one); the paged kernel has none (no single call reads a page
-    table)."""
+    prompts of 2048), mistral-large-123b's (96 heads over 8 kv-heads of
+    128; the paged kernel reads the bf16 pool an int8 pool dequantizes to)
+    and seamless-m4t-medium's (MHA, 16 heads of 64: the encoder's
+    non-causal 2048 x 2048 flash, the cross-attention prefill's 64 x 2048,
+    and the cross-attention decode over rows of 2048 frames with an empty
+    headroom page). Each is checked against the plain version first. The
+    library call for flash is SDPA (with the causal window as an explicit
+    boolean mask where there is one); the paged kernel has none (no single
+    call reads a page table)."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     n_sm = torch.cuda.get_device_properties(gen.device).multi_processor_count
@@ -387,20 +420,14 @@ def shape_rows(gen, flush) -> dict:
                     dict(Sq=MIXTRAL_PROMPT, Sk=MIXTRAL_PROMPT, D=128, window=WINDOW)),
         "zamba2": (dict(H=32, K=32, D=80, **long), dict(B=8, Sq=PROMPT, Sk=PROMPT, H=32, K=32, D=80)),
         "mistral": (dict(H=96, K=8, D=128, **long), dict(B=8, Sq=PROMPT, Sk=PROMPT, H=96, K=8, D=128)),
+        "seamless-encoder": (None, dict(B=8, Sq=ENC_FRAMES, Sk=ENC_FRAMES, H=16, K=16, D=64, causal=False)),
+        "seamless-cross": (dict(H=16, K=16, D=64, R=ENC_FRAMES // 64 + 1, P=8 * (ENC_FRAMES // 64 + 1),
+                                lengths=[ENC_FRAMES] * 8),
+                           dict(B=8, Sq=DEC_PROMPT, Sk=ENC_FRAMES, H=16, K=16, D=64, causal=False)),
     }
     for tag, (pk, fk) in cases.items():
-        args, win = paged_case(gen, **pk)
-        q, pool_k, _, tables, _, _ = args
-        plan = pa.launch_plan(q.shape[0], q.shape[1], pool_k.shape[2], q.shape[2], tables.shape[1], n_sm)
-        row = dict(max_abs_err=check_paged(args, win, f"{tag} decode shape {pk}"),
-                   ms=time_ms(lambda: pa.paged_attention_cuda(*args, window=win), flush=flush),
-                   plain_ms=time_ms(lambda: pa.paged_attention_plain(*args, window=win), flush=flush),
-                   library_ms=None, grid=list(plan.grid), head_chunk=plan.head_chunk,
-                   n_splits=plan.n_splits)
-        row.update(zip(("bound_ms", "bound_by"), bound_ms(*paged_work(args, win))))
-        rows["paged_attention"][tag] = row
-        del args, q, pool_k, tables
-
+        if pk is not None:
+            rows["paged_attention"][tag] = paged_row(gen, flush, tag, pk, n_sm)
         (q, k, v), kw = flash_case(gen, **fk)
         err = check_flash((q, k, v), kw, f"{tag} prefill shape {fk}")
         B, Sq, H, D = q.shape
@@ -411,7 +438,7 @@ def shape_rows(gen, flush) -> dict:
             mask = flash_mask(Sq, Sk, causal=True, window=kw["window"], q_start=0, device=q.device)
             library = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=H != K)  # noqa: E731
         else:
-            library = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=H != K)  # noqa: E731
+            library = lambda: sdpa(qt, kt, vt, is_causal=kw["causal"], enable_gqa=H != K)  # noqa: E731
         lib_err = (library().transpose(1, 2).float() - fa.flash_attention_cuda(q, k, v, **kw).float()).abs().max().item()
         iters = 50 if B * Sq <= 1024 else 10  # the plain version materialises Sq x Sk scores
         row = dict(max_abs_err=err, ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), iters),
@@ -1128,21 +1155,44 @@ def build_model_params(cfg, name, dev, dtype):
     return model, params
 
 
-def drive(model, params, cfg, tokens, kernels, name) -> dict:
-    """The traffic of steps 8-10 through the model API, every kernel count
-    at 0 first: one prefill of ``tokens``, then ``N_DECODE`` greedy decode
-    steps, each timed on the host clock and synchronised. Checks the logits
-    are finite; returns the measures, the last cache and the launches."""
-    dev = tokens.device
-    model.prefill(params, tokens[:, :cfg.kv_page_tokens])  # first-call set-up (cuBLAS handles)
+def _rows(inputs) -> tuple:
+    """(rows, device, a description) of a prefill input: tokens (B, S), or
+    an encoder-decoder's ``{"enc_embeds", "tokens"}``."""
+    if not isinstance(inputs, dict):
+        return inputs.shape[0], inputs.device, f"{inputs.shape[1]} tokens"
+    names = {"enc_embeds": "encoder frames", "tokens": "decoder tokens"}
+    first = next(iter(inputs.values()))
+    return first.shape[0], first.device, " and ".join(f"{v.shape[1]} {names[k]}" for k, v in inputs.items())
+
+
+def _head(inputs, n: int):
+    """The first ``n`` positions of every prefill input."""
+    if isinstance(inputs, dict):
+        return {k: v[:, :n] for k, v in inputs.items()}
+    return inputs[:, :n]
+
+
+def drive(model, params, cfg, inputs, kernels, name, on_prefill=None) -> dict:
+    """The traffic of steps 8-11 through the model API, every kernel count
+    at 0 first: one prefill of ``inputs`` (tokens, or an encoder-decoder's
+    dict), then ``N_DECODE`` greedy decode steps, each timed on the host
+    clock and synchronised; ``on_prefill(cache)`` runs between the two,
+    untimed. Checks the logits are finite; returns the measures (the
+    launches of the prefill and of the whole run among them), the last
+    logits and the last cache."""
+    B, dev, desc = _rows(inputs)
+    model.prefill(params, _head(inputs, cfg.kv_page_tokens))  # first-call set-up (cuBLAS handles)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, tokens)
+    logits, cache = model.prefill(params, inputs)
     torch.cuda.synchronize(dev)
     prefill_s = time.perf_counter() - t0
+    prefill_launches = {k.__name__.removesuffix("_cuda"): k.launches for k in kernels}
+    if on_prefill is not None:
+        on_prefill(cache)
     steps = []
     for _ in range(N_DECODE):
         check(bool(torch.isfinite(logits).all()), f"{name}: non-finite logits")
@@ -1152,14 +1202,14 @@ def drive(model, params, cfg, tokens, kernels, name) -> dict:
         torch.cuda.synchronize(dev)
         steps.append(time.perf_counter() - t0)
     check(bool(torch.isfinite(logits).all()), f"{name}: non-finite logits")
-    check(tuple(logits.shape) == (tokens.shape[0], cfg.padded_vocab), f"{name}: logits {tuple(logits.shape)}")
+    check(tuple(logits.shape) == (B, cfg.padded_vocab), f"{name}: logits {tuple(logits.shape)}")
     launches = {k.__name__.removesuffix("_cuda"): k.launches for k in kernels}
-    B = tokens.shape[0]
     out = dict(prefill_ms=prefill_s * 1e3, decode_step_ms=statistics.median(steps) * 1e3,
-               decode_tok_s=B * N_DECODE / sum(steps),
+               decode_step_least_ms=min(steps) * 1e3, decode_tok_s=B * N_DECODE / sum(steps),
                tok_s=B * (N_DECODE + 1) / (prefill_s + sum(steps)),
-               run_peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
-    print(f"  {name}: {B} rows of {tokens.shape[1]} tokens, prefill {out['prefill_ms']:.2f} ms; {N_DECODE} "
+               run_peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
+               prefill_launches=prefill_launches)
+    print(f"  {name}: {B} rows of {desc}, prefill {out['prefill_ms']:.2f} ms; {N_DECODE} "
           f"greedy decode steps, median {out['decode_step_ms']:.3f} ms, least {min(steps) * 1e3:.3f} ms (host "
           f"clock, synchronised): {out['decode_tok_s']:.1f} tok/s in decode, {out['tok_s']:.1f} tok/s with the "
           f"prefill ({B * (N_DECODE + 1)} tokens); peak memory {out['run_peak_gib']:.2f} GiB; launches {launches}",
@@ -1169,6 +1219,10 @@ def drive(model, params, cfg, tokens, kernels, name) -> dict:
 
 def state_bytes(cache) -> int:
     return sum(t.numel() * t.element_size() for t in cache["ssm"].values())
+
+
+def kv_pool_bytes(kv) -> int:
+    return sum(kv[n].numel() * kv[n].element_size() for n in ("pool_k", "pool_v"))
 
 
 def ssd_einsum_ms(cfg, B: int, S: int, dev) -> dict:
@@ -1270,10 +1324,11 @@ def _tree_to(tree, dev):
     return tree.to(dev)
 
 
-def hold_attention_layers(model, params, cfg, cache, prompt, dev, name, n_attn) -> dict:
-    """One decode step from a copy of ``cache`` and one prefill of
-    ``prompt`` (one row), each attention layer's kernel call held to the
-    plain version on its own inputs (as step 7), and their logits held to
+def hold_attention_layers(model, params, cfg, cache, prompt, dev, name, n_flash, n_paged) -> dict:
+    """One decode step from a copy of ``cache`` (``n_paged`` paged calls)
+    and one prefill of ``prompt`` (one row: tokens, or an encoder-decoder's
+    dict; ``n_flash`` flash calls), each kernel call held to the plain
+    version on its own inputs (as step 7), and their logits held to
     ``impl="ref"`` from the same starting point."""
     nxt = torch.zeros((cache["lengths"].shape[0],), dtype=torch.long, device=dev)
     errs = {"flash_attention": [], "paged_attention": []}
@@ -1283,12 +1338,12 @@ def hold_attention_layers(model, params, cfg, cache, prompt, dev, name, n_attn) 
     finally:
         restore()
     want, _ = model.decode_step(params, clone_cache(cache), nxt, impl="ref")
-    check(len(errs["paged_attention"]) == n_attn, f"{name}: {len(errs['paged_attention'])} paged calls")
+    check(len(errs["paged_attention"]) == n_paged, f"{name}: {len(errs['paged_attention'])} paged calls")
     worst, scaled, stat_err = (max(e) for e in zip(*errs["paged_attention"]))
     rel_d = (got - want).abs().max().item() / want.abs().max().item()
     lengths = cache["lengths"]
     print(f"  {name} decode step (rows of {lengths.min().item() + 1}-{lengths.max().item() + 1} tokens): paged "
-          f"kernel (o, m, l) vs plain on each of its {n_attn} attention layers' inputs, normalised o max abs err "
+          f"kernel (o, m, l) vs plain on the inputs of each of its {n_paged} calls, normalised o max abs err "
           f"{worst:.3e}, over 1 + |plain| {scaled:.3e} (tol {TOL_F32['paged_attention']}), m/l err {stat_err:.3e} "
           f"(tol 1e-3); logits vs ref: max abs err / max |ref| = {rel_d:.3e} (tol {LOGITS_TOL})", flush=True)
     check(scaled <= TOL_F32["paged_attention"] and stat_err <= 1e-3, f"{name}: a layer's paged kernel disagrees")
@@ -1300,11 +1355,11 @@ def hold_attention_layers(model, params, cfg, cache, prompt, dev, name, n_attn) 
     finally:
         restore()
     lr, _ = model.prefill(params, prompt, impl="ref")
-    check(len(errs["flash_attention"]) == n_attn, f"{name}: {len(errs['flash_attention'])} flash calls")
+    check(len(errs["flash_attention"]) == n_flash, f"{name}: {len(errs['flash_attention'])} flash calls")
     worst, rel, _ = (max(e) for e in zip(*errs["flash_attention"]))
     rel_p = (lk - lr).abs().max().item() / lr.abs().max().item()
-    print(f"  {name} prefill (Sq=Sk={prompt.shape[1]}): flash kernel vs plain on each of its {n_attn} attention "
-          f"layers' inputs, max abs err {worst:.3e}, row err {rel:.3e} (tol {ROW_TOL} in bf16); logits vs ref: "
+    print(f"  {name} prefill (one row of {_rows(prompt)[2]}): flash kernel vs plain on the inputs of each of its "
+          f"{n_flash} calls, max abs err {worst:.3e}, row err {rel:.3e} (tol {ROW_TOL} in bf16); logits vs ref: "
           f"max abs err / max |ref| = {rel_p:.3e} (tol {LOGITS_TOL})", flush=True)
     check(all(e[2] for e in errs["flash_attention"]), f"{name}: a layer's flash kernel disagrees with plain")
     check(bool(torch.isfinite(lk).all()) and rel_p <= LOGITS_TOL, f"{name}: prefill logits disagree with ref")
@@ -1322,14 +1377,14 @@ def zamba2_phase(cfg, dev, kernels) -> dict:
     res, _, cache = drive(model, params, cfg, tokens, kernels, "zamba2 run")
     check(all(n > 0 for n in res["launches"].values()), f"zamba2: a kernel never ran: {res['launches']}")
     n_attn = cfg.n_layers // cfg.attn_every
-    kv_bytes = sum(cache["kv"][n].numel() * cache["kv"][n].element_size() for n in ("pool_k", "pool_v"))
+    kv_bytes = kv_pool_bytes(cache["kv"])
     res.update(ssm_state_bytes=state_bytes(cache), kv_pool_bytes=kv_bytes)
     print(f"  zamba2 state: SSM {res['ssm_state_bytes']} bytes (ssm {tuple(cache['ssm']['ssm'].shape)}, conv "
           f"{tuple(cache['ssm']['conv'].shape)}); KV pools {kv_bytes} bytes ({tuple(cache['kv']['pool_k'].shape)} "
           f"x2 {cache['kv']['pool_k'].dtype})", flush=True)
     res["einsums"] = ssd_einsum_ms(cfg, 8, PROMPT, dev)
     res.update(profile_step(model, params, cache, cfg, dev, "zamba2"))
-    held = hold_attention_layers(model, params, cfg, cache, tokens[:1], dev, "zamba2", n_attn)
+    held = hold_attention_layers(model, params, cfg, cache, tokens[:1], dev, "zamba2", n_attn, n_attn)
     held.pop("one_row_prefill")
     res.update(held)
     return res
@@ -1360,7 +1415,8 @@ def mistral_phase(cfg, dev, kernels) -> dict:
           f"{deq_ms:.4f} ms a step (bound {deq_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms: {deq_bytes} bytes)",
           flush=True)
     res.update(profile_step(model, params, cache, cfg, dev, "mistral-large"))
-    held = hold_attention_layers(model, params, cfg, cache, tokens[:1], dev, "mistral-large", cfg.n_layers)
+    held = hold_attention_layers(model, params, cfg, cache, tokens[:1], dev, "mistral-large", cfg.n_layers,
+                                 cfg.n_layers)
     lk, ck = held.pop("one_row_prefill")
     res.update(held)
 
@@ -1384,6 +1440,69 @@ def mistral_phase(cfg, dev, kernels) -> dict:
           f"for bit (and the prefill's int8 pool where K is not rounded first); one decode step over int8 vs bf16 pools: max |logits difference| "
           f"{res['int8_vs_bf16_logits']:.4e} (max |logit| {d16.abs().max().item():.4e}; quantization error, "
           f"not held)", flush=True)
+    return res
+
+
+ENCODE_ONLY_STEPS = 8
+
+
+def seamless_phase(cfg, dev, kernels) -> dict:
+    """Step 11: seamless-m4t-medium (the encoder-decoder) at full width and
+    depth through the model API: 8 rows of 2048 encoder frames (N(0, 1) in
+    bf16 from seed 0, as the JAX package's ``concrete_batch``), a 64-token
+    decoder prompt, 32 greedy decode steps inside the headroom page. Then
+    an encode-only prefill with 8 decode steps from token 0, its last step
+    held to ``impl="ref"``; every kernel call of a one-row prefill and of a
+    decode step held to the plain version; the cross pools unchanged by
+    decode."""
+    model, params = build_model_params(cfg, cfg.arch_id, dev, cfg.cdtype())
+    build_peak = torch.cuda.max_memory_allocated() / 2**30
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    enc = torch.randn((8, ENC_FRAMES, cfg.d_model), generator=gen, device=dev).to(cfg.cdtype())
+    inputs = {"enc_embeds": enc, "tokens": prompt_tokens(cfg, 8, DEC_PROMPT, dev)}
+    n_flash, n_paged = cfg.n_enc_layers + 2 * cfg.n_dec_layers, 2 * cfg.n_dec_layers
+    cross0 = {}  # the cross pools after the prefill, on the host
+
+    def keep_cross(c):
+        cross0.update({n: c["cross_kv"][n].cpu() for n in ("pool_k", "pool_v")})
+
+    res, _, cache = drive(model, params, cfg, inputs, kernels, "seamless run", on_prefill=keep_cross)
+    check(res["prefill_launches"] == {"flash_attention": n_flash, "paged_attention": 0}
+          and res["launches"] == {"flash_attention": n_flash, "paged_attention": n_paged * N_DECODE},
+          f"seamless: launches {res['prefill_launches']} in the prefill, {res['launches']} in the run; expected "
+          f"{n_flash} flash calls in the prefill and {n_paged} paged calls a decode step")
+    check(all(torch.equal(cache["cross_kv"][n].cpu(), t) for n, t in cross0.items()),
+          "seamless: a decode step wrote the cross-attention pools")
+    del cross0
+    res.update(build_peak_gib=build_peak, cross_pool_bytes=kv_pool_bytes(cache["cross_kv"]),
+               self_pool_bytes=kv_pool_bytes(cache["self_kv"]))
+    print(f"  seamless pools: cross {res['cross_pool_bytes']} bytes ({tuple(cache['cross_kv']['pool_k'].shape)} x2 "
+          f"{cache['cross_kv']['pool_k'].dtype}), unchanged by {N_DECODE} decode steps; self "
+          f"{res['self_pool_bytes']} bytes ({tuple(cache['self_kv']['pool_k'].shape)} x2); launches "
+          f"{res['prefill_launches']['flash_attention']} flash in the prefill, {n_paged} paged a decode step",
+          flush=True)
+    res.update(profile_step(model, params, cache, cfg, dev, "seamless"))
+    held = hold_attention_layers(model, params, cfg, cache, {k: v[:1] for k, v in inputs.items()}, dev,
+                                 "seamless", n_flash, n_paged)
+    held.pop("one_row_prefill")
+    res.update(held)
+    del cache
+
+    # encode-only: decoding starts at position 0 from token 0
+    _, cache = model.prefill(params, {"enc_embeds": enc})
+    check(not cache["lengths"].any(), "seamless: an encode-only prefill left decoder tokens in the cache")
+    nxt = torch.zeros((enc.shape[0],), dtype=torch.long, device=dev)
+    for _ in range(ENCODE_ONLY_STEPS - 1):
+        logits, cache = model.decode_step(params, cache, nxt)
+        nxt = logits[:, :cfg.vocab_size].argmax(-1)
+    got, _ = model.decode_step(params, clone_cache(cache), nxt)
+    want, _ = model.decode_step(params, cache, nxt, impl="ref")
+    res["encode_only_vs_ref"] = (got - want).abs().max().item() / want.abs().max().item()
+    print(f"  seamless encode-only prefill, then {ENCODE_ONLY_STEPS} decode steps from token 0: the last step's "
+          f"logits vs ref: max abs err / max |ref| = {res['encode_only_vs_ref']:.3e} (tol {LOGITS_TOL})", flush=True)
+    check(bool(torch.isfinite(got).all()) and res["encode_only_vs_ref"] <= LOGITS_TOL,
+          "seamless: encode-only decode logits disagree with ref")
     return res
 
 
@@ -1611,8 +1730,20 @@ def main() -> None:
           == (12288, 96, 8, 128, 28672, 32768, 1e6, "int8", "bfloat16"), f"unexpected config {mistral}")
     mistral = mistral_phase(mistral, dev, kernels)
     print(f"mistral-large: {json.dumps(mistral)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 11. results
+    # 11. seamless-m4t-medium: the encoder-decoder at full width and depth, model API
+    seamless = get_config("seamless-m4t-medium")
+    check((seamless.family, seamless.n_enc_layers, seamless.n_dec_layers, seamless.d_model, seamless.n_heads,
+           seamless.n_kv_heads, seamless.head_dim, seamless.d_ff, seamless.vocab_size, seamless.padded_vocab,
+           seamless.kv_page_tokens) == ("audio", 12, 12, 1024, 16, 16, 64, 4096, 256206, 256256, 64),
+          f"unexpected config {seamless}")
+    print(f"before step 11: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated", flush=True)
+    seamless = seamless_phase(seamless, dev, kernels)
+    print(f"seamless: {json.dumps(seamless)}", flush=True)
+
+    # 12. results
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:79"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -1627,10 +1758,13 @@ def main() -> None:
             "library_ms": t["library_ms"], "launches_blob": launches_blob[name],
             "launches_danube": launches_danube[name], "launches_mixtral": mixtral["launches"][name],
             "launches_mamba2": mamba["launches"][name], "launches_zamba2": zamba["launches"][name],
-            "launches_mistral": mistral["launches"][name],
+            "launches_mistral": mistral["launches"][name], "launches_seamless": seamless["launches"][name],
             "shapes": rows[name], **grids[name],
         })
-    print(json.dumps({"kernels": kernels}), flush=True)
+    measures = ("prefill_ms", "decode_step_ms", "decode_step_least_ms", "decode_tok_s", "build_peak_gib",
+                "run_peak_gib", "cross_pool_bytes", "self_pool_bytes", "step_span_ms", "step_busy_ms",
+                "prefill_launches", "launches")
+    print(json.dumps({"kernels": kernels, "seamless": {k: seamless[k] for k in measures}}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -1,7 +1,8 @@
 """The one way weights cross from the JAX package to the port.
 
 :func:`params_from_jax` takes the JAX parameter pytree of a ported family
-(``dense``, ``moe``, ``vlm``, ``ssm``, ``hybrid``) -- as nested dicts of numpy arrays,
+(every family: ``dense``, ``moe``, ``vlm``, ``ssm``, ``hybrid``,
+``encdec``/``audio``) -- as nested dicts of numpy arrays,
 e.g. ``jax.tree.map(np.asarray, params)`` of
 ``build_model(cfg).init(PRNGKey(0))[0]`` -- and returns the port's params
 with the same structure, shapes, dtypes and values. No JAX is imported here.
@@ -33,6 +34,16 @@ def _attn_block_shapes(cfg: ModelConfig, *lead: int) -> Dict:
     return _prefix(block, lead)
 
 
+def _dec_block_shapes(cfg: ModelConfig, *lead: int) -> Dict:
+    """An encoder-decoder's decoder block: self- and cross-attention and a
+    dense MLP, each behind its norm, each leaf behind the ``lead`` axes."""
+    d, f = cfg.d_model, cfg.d_ff
+    block = _attn_block_shapes(cfg)
+    block = {"ln1": (d,), "self": block["attn"], "ln2": (d,), "cross": block["attn"], "ln3": (d,),
+             "mlp": {"wi": (d, f), "wg": (d, f), "wo": (f, d)}}
+    return _prefix(block, lead)
+
+
 def _ssm_block_shapes(cfg: ModelConfig, *lead: int) -> Dict:
     """A Mamba2 block's shapes, each leaf behind the ``lead`` axes."""
     d, di, n, g, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_groups, cfg.ssm_heads
@@ -53,11 +64,18 @@ def param_shapes(cfg: ModelConfig) -> Dict:
     """The shape tree of a model's params. Decoders (``dense``, ``moe``,
     ``vlm``) and ``ssm`` stack their blocks ``(L, ...)`` under ``"blocks"``;
     ``hybrid`` stacks its Mamba2 blocks ``(n_groups, per_group, ...)`` under
-    ``"mamba"`` beside one ``"shared_attn"`` transformer block."""
+    ``"mamba"`` beside one ``"shared_attn"`` transformer block; the
+    encoder-decoder stacks ``"encoder"`` blocks ``(L_enc, ...)`` and
+    ``"decoder"`` blocks ``(L_dec, ...)`` beside the norms ``"ln_enc"`` and
+    ``"ln_dec"``."""
     if cfg.family not in PORTED:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1, item 8)")
+        raise ValueError(f"unknown family {cfg.family!r}")
     L, d, V = cfg.n_layers, cfg.d_model, cfg.padded_vocab
     top = {"embed": {"table": (V, d)}}
+    if cfg.family in ("encdec", "audio"):
+        top.update(encoder=_attn_block_shapes(cfg, cfg.n_enc_layers),
+                   decoder=_dec_block_shapes(cfg, cfg.n_dec_layers), ln_enc=(d,), ln_dec=(d,))
+        return top
     if cfg.family == "hybrid":
         top["mamba"] = _ssm_block_shapes(cfg, L // cfg.attn_every, cfg.attn_every)
         top["shared_attn"] = _attn_block_shapes(cfg)

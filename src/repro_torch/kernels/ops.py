@@ -76,7 +76,7 @@ def paged_attention(
         pool_v = dequantize_pool(pool_v, scale_v)
     if axis_names:
         raise NotImplementedError(
-            "the split-K combine across pool shards is not ported yet (ROADMAP Queue 1, item 9)"
+            "the split-K combine across pool shards is not ported yet (ROADMAP Queue 1, item 6)"
         )
     if impl == "ref":
         return _ref.paged_attention_ref(

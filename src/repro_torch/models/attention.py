@@ -27,22 +27,24 @@ def attention_init(gen: torch.Generator, cfg: ModelConfig):
     }
 
 
-def _project(x: torch.Tensor, w: torch.Tensor, ct: torch.dtype) -> torch.Tensor:
+def project(x: torch.Tensor, w: torch.Tensor, ct: torch.dtype) -> torch.Tensor:
     """(B, S, d) x (d, N, hd) -> (B, S, N, hd)."""
     d, n, hd = w.shape
     return (x @ w.to(ct).reshape(d, n * hd)).reshape(*x.shape[:-1], n, hd)
 
 
-def qkv(params, x: torch.Tensor, cfg: ModelConfig, positions: Optional[torch.Tensor]):
-    """Project + rotate. x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,K,hd)."""
+def qkv(params, x: torch.Tensor, cfg: ModelConfig, positions: Optional[torch.Tensor], rope: bool = True):
+    """Project + rotate (no rotation with ``rope=False``). x: (B, S, d) ->
+    q (B,S,H,hd), k/v (B,S,K,hd)."""
     ct = cfg.cdtype()
-    q = _project(x, params["wq"], ct)
-    k = _project(x, params["wk"], ct)
-    v = _project(x, params["wv"], ct)
-    if positions is None:
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = project(x, params["wq"], ct)
+    k = project(x, params["wk"], ct)
+    v = project(x, params["wv"], ct)
+    if rope:
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -57,13 +59,28 @@ def attention_train(
     x: torch.Tensor,
     cfg: ModelConfig,
     *,
+    causal: bool = True,
+    kv_src: Optional[torch.Tensor] = None,
+    rope: bool = True,
     return_kv: bool = False,
     impl: Optional[str] = None,
 ):
-    """Full-sequence causal self-attention (prefill). With ``return_kv`` also
-    returns the rotated ``(k, v)`` for the paged cache."""
-    q, k, v = qkv(params, x, cfg, None)
-    o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window, impl=impl)
+    """Full-sequence attention (prefill, encoder, cross). With ``return_kv``
+    also returns the (rotated) ``(k, v)`` for the paged cache.
+
+    ``kv_src`` switches to cross-attention: keys and values projected from
+    that sequence, no RoPE, non-causal. The sliding window applies only to
+    causal attention."""
+    if kv_src is not None:
+        ct = cfg.cdtype()
+        q = project(x, params["wq"], ct)
+        k = project(kv_src, params["wk"], ct)
+        v = project(kv_src, params["wv"], ct)
+        causal = False
+    else:
+        q, k, v = qkv(params, x, cfg, None, rope=rope)
+    window = cfg.sliding_window if causal else None
+    o = ops.flash_attention(q, k, v, causal=causal, window=window, impl=impl)
     out = out_proj(params, o, cfg)
     if return_kv:
         return out, (k, v)
@@ -82,25 +99,33 @@ def attention_decode(
     lengths: torch.Tensor,  # (B,) tokens already cached (new token position)
     cfg: ModelConfig,
     *,
+    update: bool = True,
+    rope: bool = True,
     impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, CacheLayer]:
     """One decode step: append this token's K/V (paper WRITE, in place into
     the cache's pools, and into its scales for an int8 pool), then attend
-    over the paged pool (paper READ)."""
-    q, k, v = qkv(params, x, cfg, lengths[:, None])
-    q1, k1, v1 = q[:, 0], k[:, 0], v[:, 0]  # (B, H/K, hd)
+    over the paged pool (paper READ). ``update=False`` gives read-only
+    attention over ``lengths`` cached tokens (cross-attention over a
+    prefilled pool): nothing is written and the cache comes back as given."""
+    positions = lengths[:, None] if rope else None
     quant = cache["pool_k"].dtype == torch.int8
+    pool_k, pool_v, page_pos = cache["pool_k"], cache["pool_v"], cache["page_pos"]
     sk, sv = cache.get("scale_k"), cache.get("scale_v")
-    out = ops.paged_update(
-        cache["pool_k"], cache["pool_v"], cache["tables"], cache["page_pos"], lengths, k1, v1,
-        scale_k=sk, scale_v=sv,
-    )
-    if quant:
-        pool_k, pool_v, page_pos, sk, sv = out
-    else:
-        pool_k, pool_v, page_pos = out
+    if update:
+        q, k, v = qkv(params, x, cfg, positions, rope=rope)
+        out = ops.paged_update(pool_k, pool_v, cache["tables"], page_pos, lengths, k[:, 0], v[:, 0],
+                               scale_k=sk, scale_v=sv)
+        if quant:
+            pool_k, pool_v, page_pos, sk, sv = out
+        else:
+            pool_k, pool_v, page_pos = out
+    else:  # only q is needed: the keys and values are already in the pool
+        q = project(x, params["wq"], cfg.cdtype())
+        if rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
     o = ops.paged_attention(
-        q1, pool_k, pool_v, cache["tables"], page_pos, lengths + 1,
+        q[:, 0], pool_k, pool_v, cache["tables"], page_pos, lengths + (1 if update else 0),
         scale_k=sk, scale_v=sv, window=cfg.sliding_window, impl=impl,
     )
     new_cache = dict(cache, pool_k=pool_k, pool_v=pool_v, page_pos=page_pos)

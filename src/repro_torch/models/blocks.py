@@ -1,5 +1,6 @@
 """Pre-norm blocks, the counterpart of :mod:`repro.models.blocks`: the
-transformer block (dense or MoE) and the Mamba2 block. The JAX package's
+transformer block (dense or MoE), the encoder-decoder's decoder block (of
+:func:`repro.models.lm._encdec_lm`) and the Mamba2 block. The JAX package's
 ``lax.scan`` over stacked layers becomes a Python loop in
 :mod:`repro_torch.models.lm`."""
 
@@ -17,21 +18,22 @@ from repro_torch.models.layers import mlp, rmsnorm
 from repro_torch.models.modules import dense_init
 
 
-def block_init(gen: torch.Generator, cfg: ModelConfig):
+def mlp_init(gen: torch.Generator, cfg: ModelConfig):
     d, f, dt = cfg.d_model, cfg.d_ff, cfg.pdtype()
-    params = {
-        "ln1": torch.ones((d,), dtype=dt, device=gen.device),
-        "attn": attn.attention_init(gen, cfg),
-        "ln2": torch.ones((d,), dtype=dt, device=gen.device),
+    return {
+        "wi": dense_init(gen, d, (f,), dt),
+        "wg": dense_init(gen, d, (f,), dt),
+        "wo": dense_init(gen, f, (d,), dt),
     }
-    if cfg.is_moe:
-        params["ffn"] = moe_mod.moe_init(gen, cfg)
-    else:
-        params["ffn"] = {
-            "wi": dense_init(gen, d, (f,), dt),
-            "wg": dense_init(gen, d, (f,), dt),
-            "wo": dense_init(gen, f, (d,), dt),
-        }
+
+
+def _norm_init(gen: torch.Generator, cfg: ModelConfig) -> torch.Tensor:
+    return torch.ones((cfg.d_model,), dtype=cfg.pdtype(), device=gen.device)
+
+
+def block_init(gen: torch.Generator, cfg: ModelConfig):
+    params = {"ln1": _norm_init(gen, cfg), "attn": attn.attention_init(gen, cfg), "ln2": _norm_init(gen, cfg)}
+    params["ffn"] = moe_mod.moe_init(gen, cfg) if cfg.is_moe else mlp_init(gen, cfg)
     return params
 
 
@@ -43,12 +45,12 @@ def _ffn(params, h: torch.Tensor, cfg: ModelConfig):
 
 
 def block_apply(
-    params, x: torch.Tensor, cfg: ModelConfig, *, return_kv: bool = False,
+    params, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True, return_kv: bool = False,
     impl: Optional[str] = None,
 ):
-    """Full-sequence block (prefill). Returns (x, aux), or (x, aux, (k, v))."""
+    """Full-sequence block (prefill, encoder). Returns (x, aux), or (x, aux, (k, v))."""
     h = rmsnorm(x, params["ln1"])
-    a, kv = attn.attention_train(params["attn"], h, cfg, return_kv=True, impl=impl)
+    a, kv = attn.attention_train(params["attn"], h, cfg, causal=causal, return_kv=True, impl=impl)
     x = x + a
     f, aux = _ffn(params["ffn"], rmsnorm(x, params["ln2"]), cfg)
     x = x + f
@@ -64,6 +66,38 @@ def block_decode(
     x = x + a
     f, _ = _ffn(params["ffn"], rmsnorm(x, params["ln2"]), cfg)
     return x + f, cache
+
+
+# ------------------------------ encoder-decoder's decoder block ------------------------------
+def dec_block_init(gen: torch.Generator, cfg: ModelConfig):
+    """Causal self-attention, cross-attention over the encoder, dense MLP,
+    each behind its norm (the JAX package's ``_encdec_lm.dec_block_init``)."""
+    return {"ln1": _norm_init(gen, cfg), "self": attn.attention_init(gen, cfg), "ln2": _norm_init(gen, cfg),
+            "cross": attn.attention_init(gen, cfg), "ln3": _norm_init(gen, cfg), "mlp": mlp_init(gen, cfg)}
+
+
+def dec_block_apply(params, x: torch.Tensor, enc_out: torch.Tensor, cfg: ModelConfig, *,
+                    impl: Optional[str] = None):
+    """Full-sequence decoder block (prefill). Returns (x, the self-attention's (k, v))."""
+    a, kv = attn.attention_train(params["self"], rmsnorm(x, params["ln1"]), cfg, return_kv=True, impl=impl)
+    x = x + a
+    x = x + attn.attention_train(params["cross"], rmsnorm(x, params["ln2"]), cfg, kv_src=enc_out, impl=impl)
+    return x + mlp(params["mlp"], rmsnorm(x, params["ln3"]), cfg), kv
+
+
+def dec_block_decode(params, x: torch.Tensor, self_cache: attn.CacheLayer, cross_cache: attn.CacheLayer,
+                     lengths: torch.Tensor, enc_len: torch.Tensor, cfg: ModelConfig, *,
+                     impl: Optional[str] = None):
+    """One decode step of a decoder block: self-attention appends to
+    ``self_cache`` (in place), cross-attention reads ``cross_cache`` (never
+    written) over ``enc_len`` tokens. Returns (x, the new self cache)."""
+    a, self_cache = attn.attention_decode(params["self"], rmsnorm(x, params["ln1"]), self_cache, lengths, cfg,
+                                          impl=impl)
+    x = x + a
+    a, _ = attn.attention_decode(params["cross"], rmsnorm(x, params["ln2"]), cross_cache, enc_len, cfg,
+                                 update=False, rope=False, impl=impl)
+    x = x + a
+    return x + mlp(params["mlp"], rmsnorm(x, params["ln3"]), cfg), self_cache
 
 
 # ------------------------------ ssm block ------------------------------

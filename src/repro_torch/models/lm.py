@@ -7,15 +7,19 @@
   the JAX package's layout, per-layer leaves stacked ``(L, ...)`` (the
   hybrid's Mamba2 layers ``(n_groups, per_group, ...)``);
 * ``prefill(params, inputs, impl=None) -> (logits, cache)``, ``inputs``
-  tokens ``(B, S)`` or embeddings ``(B, S, d)``;
+  tokens ``(B, S)`` or embeddings ``(B, S, d)``, or for the encoder-decoder
+  the JAX package's batch dict ``{"enc_embeds": (B, S_enc, d)[, "tokens":
+  (B, S_dec)]}``;
 * ``decode_step(params, cache, tokens, impl=None) -> (logits, cache)``, which
   writes the new token's K/V (and an int8 pool's scales) into the cache's
   pools and the new SSM states into its state stacks, in place;
 * ``init_cache(batch, seq_len, device="cuda") -> cache``.
 
 Families ``dense``, ``moe`` and ``vlm`` (the decoder with an embeddings
-input), ``ssm`` (Mamba2) and ``hybrid`` (Mamba2 groups with one shared
-attention block after each). Serving only: no training loss and no autograd.
+input), ``ssm`` (Mamba2), ``hybrid`` (Mamba2 groups with one shared
+attention block after each), and ``encdec``/``audio`` (an encoder over
+precomputed frame embeddings and a decoder with cross-attention): every
+family of the JAX package. Serving only: no training loss and no autograd.
 """
 
 from __future__ import annotations
@@ -34,8 +38,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed, rmsnorm, unembed
 from repro_torch.models.modules import embed_init
 
-PORTED = ("dense", "moe", "vlm", "ssm", "hybrid")
-_NOT_PORTED = ("encdec", "audio")
+PORTED = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec", "audio")
 
 # leaves the JAX package uses in f32 whatever the compute dtype: the MoE
 # router (gates in f32), the SSM decay, skip and dt bias (used uncast), and
@@ -59,8 +62,8 @@ def build_model(cfg: ModelConfig) -> Model:
         return _ssm_lm(cfg)
     if fam == "hybrid":
         return _hybrid_lm(cfg)
-    if fam in _NOT_PORTED:
-        raise NotImplementedError(f"family {fam!r} is not ported yet (ROADMAP Queue 1, item 8)")
+    if fam in ("encdec", "audio"):
+        return _encdec_lm(cfg)
     raise ValueError(f"unknown family {fam}")
 
 
@@ -349,5 +352,88 @@ def _hybrid_lm(cfg: ModelConfig) -> Model:
         logits = unembed(params["embed"], h, cfg)[:, 0]
         return logits, {"ssm": dict(states), "kv": dict(kv, page_pos=torch.stack(page_pos)),
                         "lengths": lengths + 1}
+
+    return Model(init, prefill, decode_step, init_cache)
+
+
+# ================================ encoder-decoder ================================
+def _encdec_lm(cfg: ModelConfig) -> Model:
+    n_enc, n_dec = cfg.n_enc_layers, cfg.n_dec_layers
+
+    def init(seed: int = 0, device="cuda", dtype: Optional[torch.dtype] = None):
+        """The embedding, then the encoder's transformer blocks and the
+        decoder blocks (self, cross, MLP), each stack drawn layer by layer
+        straight into ``dtype`` when given."""
+        gen = _generator(seed, device)
+        table = embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.pdtype())
+        encoder = _stack_init(gen, n_enc, lambda g: B.block_init(g, cfg), dtype)
+        decoder = _stack_init(gen, n_dec, lambda g: B.dec_block_init(g, cfg), dtype)
+        norm = lambda: torch.ones((cfg.d_model,), dtype=dtype or cfg.pdtype(), device=gen.device)  # noqa: E731
+        return {"embed": {"table": table}, "encoder": encoder, "decoder": decoder,
+                "ln_enc": norm(), "ln_dec": norm()}
+
+    def init_cache(batch: int, seq_len: int, device="cuda"):
+        dev = resolve_device(device)
+        self_kv, lengths = attn.init_decode_cache(cfg, batch, seq_len, n_dec, device=dev)
+        cross_kv, _ = attn.init_decode_cache(cfg, batch, seq_len, n_dec, device=dev)
+        return {"self_kv": self_kv, "cross_kv": cross_kv, "lengths": lengths,
+                "enc_len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+    @torch.no_grad()
+    def prefill(params, inputs: Dict[str, torch.Tensor], impl: Optional[str] = None):
+        """Encode ``inputs["enc_embeds"]`` (B, S_enc, d), S_enc a multiple of
+        ``kv_page_tokens`` (non-causal self-attention), and lay each decoder
+        layer's cross K/V (no RoPE) out as pages with one headroom page.
+        With ``inputs["tokens"]`` (B, S_dec) the decoder runs over them too:
+        their self K/V become the self pools and the logits are the last
+        position's. Without, the self cache is empty (``lengths`` 0) and the
+        logits are zeros. The cache is ``{"self_kv", "cross_kv", "lengths",
+        "enc_len"}``."""
+        h = inputs["enc_embeds"].to(cfg.cdtype())
+        for i in range(n_enc):
+            h, _ = B.block_apply(_layer(params["encoder"], i), h, cfg, causal=False, impl=impl)
+        enc_out = rmsnorm(h, params["ln_enc"])
+        Bb, S_enc = enc_out.shape[:2]
+        dev = enc_out.device
+        cross = params["decoder"]["cross"]
+        ks = [attn.project(enc_out, cross["wk"][i], cfg.cdtype()) for i in range(n_dec)]
+        vs = [attn.project(enc_out, cross["wv"][i], cfg.cdtype()) for i in range(n_dec)]
+        cross_kv = _paged_cache(cfg, ks, vs)
+        del ks, vs
+
+        tokens = inputs.get("tokens")
+        if tokens is None:
+            self_kv, lengths = attn.init_decode_cache(cfg, Bb, S_enc, n_dec, device=dev)
+            logits = torch.zeros((Bb, cfg.padded_vocab), dtype=torch.float32, device=dev)
+        else:
+            h = embed(params["embed"], tokens, cfg)
+            ks, vs = [], []
+            for i in range(n_dec):
+                h, (k, v) = B.dec_block_apply(_layer(params["decoder"], i), h, enc_out, cfg, impl=impl)
+                ks.append(k)
+                vs.append(v)
+            self_kv = _paged_cache(cfg, ks, vs)
+            h = rmsnorm(h, params["ln_dec"])
+            logits = unembed(params["embed"], h[:, -1:], cfg)[:, 0]
+            lengths = _lengths(Bb, tokens.shape[1], dev)
+        return logits, {"self_kv": self_kv, "cross_kv": cross_kv, "lengths": lengths,
+                        "enc_len": _lengths(Bb, S_enc, dev)}
+
+    @torch.no_grad()
+    def decode_step(params, cache, tokens: torch.Tensor, impl: Optional[str] = None):
+        """tokens (B,). Appends each row's token to the self pools in place;
+        the cross pools are only read. Only the self cache's ``page_pos`` is
+        re-stacked."""
+        h = embed(params["embed"], tokens[:, None], cfg)
+        lengths, self_kv, cross_kv = cache["lengths"], cache["self_kv"], cache["cross_kv"]
+        page_pos = []
+        for i in range(n_dec):
+            h, new = B.dec_block_decode(
+                _layer(params["decoder"], i), h, {n: t[i] for n, t in self_kv.items()},
+                {n: t[i] for n, t in cross_kv.items()}, lengths, cache["enc_len"], cfg, impl=impl)
+            page_pos.append(new["page_pos"])
+        h = rmsnorm(h, params["ln_dec"])
+        logits = unembed(params["embed"], h, cfg)[:, 0]
+        return logits, dict(cache, self_kv=dict(self_kv, page_pos=torch.stack(page_pos)), lengths=lengths + 1)
 
     return Model(init, prefill, decode_step, init_cache)

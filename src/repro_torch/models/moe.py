@@ -110,7 +110,7 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig, axis_info: Optional[objec
     """MoE feed-forward on one device. Returns (out (B, S, d), aux scalar)."""
     if axis_info is not None:
         raise NotImplementedError(
-            "expert parallelism over several devices is not ported yet (ROADMAP Queue 1, item 9)"
+            "expert parallelism over several devices is not ported yet (ROADMAP Queue 1, item 6)"
         )
     B, S, d = x.shape
     out, aux = _moe_local(

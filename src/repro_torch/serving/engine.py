@@ -114,6 +114,14 @@ class ServingEngine:
                 f"family {cfg.family!r} is served through the model API only (build_model): the "
                 "engine's decode cache carries no SSM state, as the JAX package's engine's does not"
             )
+        if cfg.family in ("encdec", "audio"):
+            # the JAX engine takes such a config and fails at the first admit
+            # (its prefill gets no encoder input); refuse it here instead
+            raise NotImplementedError(
+                f"family {cfg.family!r} is served through the model API only (build_model: prefill "
+                "of {'enc_embeds', 'tokens'}, then decode_step): the engine's requests carry no "
+                "encoder input and its decode cache no cross-attention pools"
+            )
         if cfg.kvdtype() == torch.int8:
             # the engine scatters raw prefill pages, so it keeps bf16 pools,
             # as the JAX engine does; its model must then hand it the K/V
@@ -163,8 +171,6 @@ class ServingEngine:
         cfg = self.cfg
         if cfg.family == "hybrid":
             return cfg.n_layers // cfg.attn_every
-        if cfg.family in ("encdec", "audio"):
-            return cfg.n_dec_layers
         return cfg.n_layers
 
     # ------------------------------ device steps ------------------------------

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card;
-blob mode's pages through the card; the Mamba2 layers, the ssm and hybrid
-smoke models and the int8 KV path on the card against the CPU.
+blob mode's pages through the card; the Mamba2 layers, the ssm, hybrid and
+encoder-decoder smoke models and the int8 KV path on the card against the
+CPU.
 
 Every test here is marked ``cuda`` and skips where there is no card. On a
 machine with one (and ``nvcc``; the kernels build on first use):
@@ -112,6 +113,7 @@ FLASH_CASES = [
     (1, 130, 130, 8, 8, 80, True, 48, 0, "float32"),
     (1, 100, 100, 4, 2, 24, True, None, 0, "bfloat16"),  # head_dim 24: staged at 32
     (1, 4160, 4160, 32, 8, 128, True, 4096, 0, "bfloat16"),  # mixtral-8x7b prefill, window cuts
+    (2, 200, 2048, 16, 16, 64, False, None, 0, "bfloat16"),  # seamless cross-attention: MHA, ragged Sq != Sk
 ]
 
 
@@ -368,3 +370,31 @@ def test_state_space_layers_and_models_on_the_card_match_the_cpu(dev):
 def test_int8_kv_on_the_card_matches_the_cpu(dev):
     _check_int8_decode(dev)
     _check_int8_update_syncs(dev)
+
+
+def test_encdec_smoke_model_on_the_card_matches_the_cpu(dev):
+    """seamless-m4t-medium's smoke model (f32, f32 pools): prefill of 32
+    encoder frames and 16 decoder tokens, then three decode steps, on the
+    card (non-causal and cross flash, read-only paged decode) against the
+    CPU within 1e-4; every attention call went through a kernel, and
+    decode never wrote the cross pools."""
+    cfg, model, params, card = _smoke_on_both("seamless-m4t-medium", dev, kv_cache_dtype="float32")
+    rng = np.random.default_rng(12)
+    batch = {"enc_embeds": torch.from_numpy(rng.standard_normal((2, 32, cfg.d_model), dtype=np.float32)),
+             "tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)))}
+    n_flash, n_paged = flash_attention_cuda.launches, paged_attention_cuda.launches
+    want, wc = model.prefill(params, batch)
+    got, gc = model.prefill(card, {k: v.to(dev) for k, v in batch.items()})
+    assert flash_attention_cuda.launches - n_flash == cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    cross = {n: t.clone() for n, t in gc["cross_kv"].items()}
+    for step in range(4):
+        close(got, want, 1e-4)
+        for part in ("self_kv", "cross_kv"):
+            for name in ("pool_k", "pool_v"):
+                close(gc[part][name], wc[part][name], 1e-4)
+        if step < 3:
+            nxt = want.argmax(-1)
+            want, wc = model.decode_step(params, wc, nxt)
+            got, gc = model.decode_step(card, gc, nxt.to(dev))
+    assert paged_attention_cuda.launches - n_paged == 3 * 2 * cfg.n_dec_layers
+    assert all(torch.equal(gc["cross_kv"][n], t) for n, t in cross.items())

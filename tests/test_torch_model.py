@@ -310,21 +310,19 @@ def test_int8_init_cache_matches_jax():
         assert tc["kv"][name].numpy().dtype == np.asarray(jc["kv"][name]).dtype, name
 
 
-# encdec/audio are still to port; ssm and hybrid build now, and the serving
-# engine refuses them (its decode cache carries no SSM state, as the JAX
-# engine's does not)
+# every family builds now; the serving engine refuses ssm and hybrid (its
+# decode cache carries no SSM state, as the JAX engine's does not) and
+# encdec/audio (its requests carry no encoder input): they run through the
+# model API
 @pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b", "seamless-m4t-medium"])
 def test_unported_families_raise(arch):
     from repro_torch.serving.engine import ServingEngine
 
     cfg = get_config(arch)
-    if cfg.family in ("encdec", "audio"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg)
-        return
     build_model(cfg)
+    why = "encoder input" if cfg.family in ("encdec", "audio") else "SSM state"
     cfg = cfg.smoke()
-    with pytest.raises(NotImplementedError, match="SSM state"):
+    with pytest.raises(NotImplementedError, match=f"model API only .*{why}"):
         ServingEngine(cfg, build_model(cfg).init(seed=0, device="cpu"), device="cpu")
 
 

@@ -107,7 +107,7 @@ def test_expert_parallel_is_not_ported():
     _, tcfg = configs("mixtral-8x7b")
     gen = torch.Generator().manual_seed(0)
     x = torch.zeros((1, 4, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 6"):
         moe.moe_ffn(moe.moe_init(gen, tcfg), x, tcfg, axis_info=object())
 
 
