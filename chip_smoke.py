@@ -94,11 +94,26 @@ JAX package), and it:
     call of a one-row prefill and of a decode step to the plain version and
     their logits to ``impl="ref"``, and an encode-only prefill's eighth
     decode step to ``impl="ref"``;
-12. prints a JSON line with each kernel's launches, error, times and grid at
+12. trains, which launches neither kernel (the training attention is
+    ``ops.flash_attention``'s ``impl="xla"``, the JAX package's own XLA
+    path): (a) ``llama3_2-1b`` at full width and depth, nothing cut (f32
+    params, AdamW, bf16 compute, ``grad_accum`` 4, full remat), 2 + 8 steps
+    of 8 rows of 2048 tokens that ``TokenPipeline`` reads from the bigram
+    corpus in a ``Cluster`` blob; prints the median step, tok/s, peak
+    memory, the losses and grad norms, and a traced step's busy share and
+    the ms of the f32 unembedding and of the attention einsums; holds one
+    microbatch's loss to ``impl="ref"``; (b) one step of each family's smoke
+    config on the card against the CPU; (c) the launcher
+    (``repro_torch.launch.train``): the loss falls over 30 smoke steps, and
+    a run crashed at step 14 and rerun with ``restore`` ends on the
+    uninterrupted run's loss; (d) (a)'s whole state (params and moments)
+    saved to and restored from a ``BlobCheckpointer`` at 1 MiB pages, bit
+    for bit; and checks both kernels' counters read 0 across it;
+13. prints a JSON line with each kernel's launches, error, times and grid at
     the main-path shape (and its times at the danube, mixtral, zamba2,
-    mistral-large and seamless shapes, and its launches in steps 5-11) and
-    step 11's measures, and, as the last line, ``{"ok": true, "device":
-    {...}}``.
+    mistral-large and seamless shapes, and its launches in steps 5-12) and
+    the measures of steps 11 and 12, and, as the last line, ``{"ok": true,
+    "device": {...}}``.
 
 Any failure exits nonzero before the last line is printed.
 """
@@ -948,8 +963,8 @@ def checked_attention(errs) -> callable:
 
     flash, paged = ops.flash_attention, ops.paged_attention
 
-    def flash_checked(q, k, v, *, causal=True, window=None, q_start=0, impl=None):
-        out = flash(q, k, v, causal=causal, window=window, q_start=q_start, impl=impl)
+    def flash_checked(q, k, v, *, causal=True, window=None, q_start=0, impl=None, **kw):
+        out = flash(q, k, v, causal=causal, window=window, q_start=q_start, impl=impl, **kw)
         if impl is None:
             want = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
                                          window=window, q_start=q_start)
@@ -1324,6 +1339,12 @@ def _tree_to(tree, dev):
     return tree.to(dev)
 
 
+def _copy_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _copy_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev, copy=True)
+
+
 def hold_attention_layers(model, params, cfg, cache, prompt, dev, name, n_flash, n_paged) -> dict:
     """One decode step from a copy of ``cache`` (``n_paged`` paged calls)
     and one prefill of ``prompt`` (one row: tokens, or an encoder-decoder's
@@ -1504,6 +1525,322 @@ def seamless_phase(cfg, dev, kernels) -> dict:
     check(bool(torch.isfinite(got).all()) and res["encode_only_vs_ref"] <= LOGITS_TOL,
           "seamless: encode-only decode logits disagree with ref")
     return res
+
+
+# ------------------------------ step 12: training ------------------------------
+TRAIN_ROWS, TRAIN_SEQ = 8, 2048  # 16384 tokens a step, in 4 microbatches of 2 rows
+TRAIN_WARMUP, TRAIN_TIMED = 2, 8
+TRAIN_LR = 3e-4
+XLA_REF_TOL = 1e-3  # one microbatch's bf16 loss, impl="xla" against impl="ref", relative
+TRAIN_LOSS_TOL = 1e-5  # a smoke step's loss, card against CPU (f32), relative to max(1, |cpu|)
+TRAIN_GRAD_TOL = 1e-4  # each leaf of the step's moments and parameter deltas, over its largest
+# AdamW's first step divides each gradient element by its own magnitude, so
+# an element whose gradient is near zero gets a delta of about lr with a
+# sign set by rounding: one f32 step of the torch port on the CPU against
+# the JAX package moved wk's deltas 0.14 of the largest apart. So the card's
+# step is held in two parts: its moments (linear in the gradient) to the
+# CPU's, and its parameter deltas to AdamW's formula applied on the CPU to
+# the card's own moments.
+TRAIN_FAMILIES = ("llama3_2-1b", "mixtral-8x7b", "chameleon-34b", "mamba2-370m", "zamba2-2.7b",
+                  "seamless-m4t-medium")
+
+
+def _paths(tree, path=()) -> dict:
+    """{path: leaf} of a tree of dicts, keys sorted."""
+    if isinstance(tree, dict):
+        return {p: v for k in sorted(tree) for p, v in _paths(tree[k], path + (k,)).items()}
+    return {path: tree}
+
+
+def train_batch(pipe, step: int, dev) -> dict:
+    return {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(step).items()}
+
+
+def traced_train_step(run, cfg, dev) -> dict:
+    """One training step under ``torch.profiler`` with shapes: its span
+    between CUDA events, the device's busy time (the union of kernel and
+    copy intervals), the device ms of the f32 unembedding (every ``mm`` with
+    the padded vocab among its input shapes: the forward and both backward
+    products) and of the attention einsums (every ``bmm``: QK^T and P.V,
+    their recompute and backward), and the six ops with the most device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_serve import _merged_device_intervals
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        torch.cuda.synchronize(dev)
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize(dev)
+    span = start.elapsed_time(end)
+    events = prof.events()
+    busy = sum(e - s for s, e in _merged_device_intervals(events)) / 1e3
+    unembed = attention = 0.0
+    for e in events:
+        if e.name == "aten::mm" and any(cfg.padded_vocab in s for s in e.input_shapes if s):
+            unembed += e.self_device_time_total / 1e3
+        elif e.name == "aten::bmm":
+            attention += e.self_device_time_total / 1e3
+    top = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                  if e.self_device_time_total > 0), key=lambda t: -t[1])[:6]
+    return {"span_ms": span, "busy_ms": busy, "busy_share": busy / span, "unembed_ms": unembed,
+            "attention_einsum_ms": attention, "top": top}
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def llama_training(cfg, dev) -> dict:
+    """Step 12 (a) and (d): ``llama3_2-1b`` at full width and depth trained
+    through ``make_train_step`` on batches that ``TokenPipeline`` reads from
+    the bigram corpus in a ``Cluster`` blob; then its whole state (f32
+    params, AdamW moments) saved to and restored from a ``BlobCheckpointer``
+    at the class default page size."""
+    from repro_torch.core import Cluster
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline, write_token_corpus
+    from repro_torch.launch.train import bigram_corpus, corpus_tokens
+    from repro_torch.models.lm import build_model
+    from repro_torch.storage.checkpoint import BlobCheckpointer
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state = init_train_state(model, seed=0, device=dev)
+    n_params = sum(t.numel() for t in _paths(params).values())
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    step_fn = make_train_step(model, cfg, AdamWConfig(lr=TRAIN_LR, total_steps=steps,
+                                                      warmup_steps=max(steps // 10, 1)))
+    res = {"params": n_params, "tokens_per_step": TRAIN_ROWS * TRAIN_SEQ}
+    cluster = Cluster(n_data_providers=4, n_metadata_providers=4)
+    try:
+        session = cluster.session()
+        n_tokens = corpus_tokens(TRAIN_ROWS, TRAIN_SEQ)
+        t0 = time.perf_counter()
+        corpus = bigram_corpus(cfg.vocab_size, n_tokens, np.random.default_rng(0))
+        pipe = TokenPipeline(write_token_corpus(session, corpus), n_tokens,
+                             PipelineConfig(batch_per_rank=TRAIN_ROWS, seq_len=TRAIN_SEQ, n_ranks=1, rank=0))
+        print(f"  corpus: {n_tokens} tokens made and stored as one blob in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        losses, gnorms, step_s, read_s = [], [], [], []
+        for step in range(steps):
+            t0 = time.perf_counter()
+            batch = train_batch(pipe, step, dev)
+            t1 = time.perf_counter()
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            losses.append(float(metrics["loss"]))
+            gnorms.append(float(metrics["grad_norm"]))
+            if step >= TRAIN_WARMUP:
+                step_s.append(t2 - t0)
+                read_s.append(t1 - t0)
+        check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+              f"llama3_2-1b training: non-finite losses {losses} or grad norms {gnorms}")
+        res.update(step_ms=statistics.median(step_s) * 1e3, step_ms_min=min(step_s) * 1e3,
+                   step_ms_max=max(step_s) * 1e3, batch_read_ms=statistics.median(read_s) * 1e3,
+                   tok_s=TRAIN_ROWS * TRAIN_SEQ / statistics.median(step_s),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30, first_loss=losses[0],
+                   last_loss=losses[-1], losses=losses, grad_norms=gnorms)
+        print(f"  llama3_2-1b training ({n_params} parameters, {cfg.param_dtype} params, {cfg.compute_dtype} compute, grad_accum "
+              f"{cfg.grad_accum}, remat {cfg.remat}): median step {res['step_ms']:.1f} ms (host clock, "
+              f"synchronised; {res['step_ms_min']:.1f}-{res['step_ms_max']:.1f} over {TRAIN_TIMED} steps; "
+              f"batch read from the blob {res['batch_read_ms']:.2f} ms of it), {res['tok_s']:.0f} tok/s, "
+              f"peak memory {res['peak_gib']:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f}, grad norm "
+              f"{gnorms[0]:.4f} -> {gnorms[-1]:.4f}", flush=True)
+
+        trace = traced_train_step(lambda: step_fn(params, opt_state, train_batch(pipe, steps, dev)), cfg, dev)
+        res["trace"] = {k: v for k, v in trace.items() if k != "top"}
+        res["trace"]["busy_share_of_median_step"] = trace["busy_ms"] / res["step_ms"]
+        print(f"  traced step: {trace['span_ms']:.1f} ms between CUDA events (the profiler's host cost "
+              f"included), device busy {trace['busy_ms']:.1f} ms ({trace['busy_share']:.1%} of the span, "
+              f"{res['trace']['busy_share_of_median_step']:.1%} of the median untraced step); f32 unembedding "
+              f"{trace['unembed_ms']:.1f} ms, attention einsums {trace['attention_einsum_ms']:.1f} ms; top "
+              + ", ".join(f"{k} {ms:.1f} ms/{n}" for k, ms, n in trace["top"]), flush=True)
+
+        # the training attention against the quadratic oracle, one microbatch
+        mb = {k: v[:TRAIN_ROWS // cfg.grad_accum] for k, v in train_batch(pipe, 0, dev).items()}
+        with torch.no_grad():
+            l_xla = float(model.train_loss(params, mb, impl="xla")[0])
+            l_ref = float(model.train_loss(params, mb, impl="ref")[0])
+        rel = abs(l_xla - l_ref) / abs(l_ref)
+        res.update(xla_loss=l_xla, ref_loss=l_ref, xla_ref_rel=rel)
+        print(f"  one microbatch's loss: impl='xla' {l_xla:.6f}, impl='ref' {l_ref:.6f}, relative "
+              f"difference {rel:.3e} (tol {XLA_REF_TOL})", flush=True)
+        check(rel <= XLA_REF_TOL, f"training attention: impl='xla' loss {l_xla} vs ref {l_ref}")
+        del mb, batch, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the whole state through the versioned blob store, 1 MiB pages
+        state = {"params": params, "opt": opt_state}
+        t0 = time.perf_counter()
+        ck = BlobCheckpointer(session, state)
+        rec = ck.save(steps, state)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = ck.restore(device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        nbytes = sum(i.size for i in ck.layout)
+        same = all(bits_equal(a, b) for a, b in zip(_paths(restored).values(), _paths(state).values()))
+        res["checkpoint"] = {"bytes": nbytes, "pages": rec.total_pages, "dirty_pages": rec.dirty_pages,
+                             "page_size": ck.page_size, "save_ms": save_s * 1e3, "restore_ms": restore_s * 1e3}
+        print(f"  checkpoint of the whole state: {nbytes} bytes in {len(ck.layout)} leaves, {rec.total_pages} "
+              f"pages of {ck.page_size} bytes ({rec.dirty_pages} dirty); save {save_s * 1e3:.0f} ms, restore "
+              f"to the card {restore_s * 1e3:.0f} ms; restored state bit-equal: {same}", flush=True)
+        check(same, "the restored checkpoint differs from the saved state")
+        del restored, state, ck
+    finally:
+        cluster.close()
+    return res
+
+
+def smoke_train_batch(cfg, rows: int = 4, seq: int = 64, seed: int = 0) -> dict:
+    """The JAX package's batch dict for ``cfg``: tokens and labels (a few -1),
+    ``embeds`` for a vlm backbone, ``enc_embeds`` for the encoder-decoder."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (rows, seq)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (rows, seq)).astype(np.int32)}
+    batch["labels"][0, :5] = -1
+    if cfg.family == "vlm":
+        batch["embeds"] = rng.standard_normal((rows, seq, cfg.d_model)).astype(np.float32)
+        del batch["tokens"]
+    if cfg.family in ("encdec", "audio"):
+        batch["enc_embeds"] = rng.standard_normal((rows, seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def adamw_first_step(p0, m, v, cfg) -> torch.Tensor:
+    """The params after AdamW's first step with moments ``m`` and ``v``, in
+    f32 on the CPU: ``p0 - lr * (m̂ / (sqrt(v̂) + eps) + wd * p0)``."""
+    from repro_torch.train.optimizer import lr_at
+
+    one = torch.ones((), dtype=torch.int32)
+    lr = lr_at(one, cfg)
+    bc1 = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32), one.float())
+    bc2 = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32), one.float())
+    p0 = p0.float()
+    return p0 - lr * ((m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * p0)
+
+
+def family_steps(dev) -> dict:
+    """Step 12 (b): one train step of each family's smoke config on the card
+    against the same step on the CPU, from the same weights (drawn on the
+    CPU) and batch: the loss, the moments, and the card's parameter deltas
+    against AdamW's formula on its own moments."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        cfg = get_config(arch).smoke()
+        model = build_model(cfg)
+        batch = smoke_train_batch(cfg)
+        params0 = model.init(seed=0, device="cpu")
+        runs = {}
+        for d in ("cpu", dev):
+            params = _copy_to(params0, d)  # a copy: the step updates its params in place
+            opt_state = adamw_init(params)
+            step = make_train_step(model, cfg, opt_cfg)
+            params, opt_state, metrics = step(params, opt_state, {k: torch.from_numpy(v).to(d) for k, v in batch.items()})
+            runs[str(d)] = (float(metrics["loss"]), _paths(_tree_to(params, "cpu")),
+                            _paths(_tree_to(opt_state["m"], "cpu")), _paths(_tree_to(opt_state["v"], "cpu")))
+        (l_cpu, p_cpu, m_cpu, v_cpu), (l_card, p_card, m_card, v_card) = runs["cpu"], runs[str(dev)]
+        p0 = _paths(params0)
+        loss_err = abs(l_card - l_cpu) / max(1.0, abs(l_cpu))
+        worst = {"m": 0.0, "v": 0.0, "delta": 0.0, "delta_vs_cpu": 0.0}
+        for path in p0:
+            for name, a, b in (("m", m_card, m_cpu), ("v", v_card, v_cpu)):
+                worst[name] = max(worst[name], float((a[path] - b[path]).abs().max() / b[path].abs().max().clamp_min(1e-30)))
+            d_card = p_card[path].float() - p0[path].float()
+            scale = d_card.abs().max().clamp_min(1e-30)
+            want = adamw_first_step(p0[path], m_card[path], v_card[path], opt_cfg)
+            worst["delta"] = max(worst["delta"], float((p_card[path].float() - want).abs().max() / scale))
+            worst["delta_vs_cpu"] = max(worst["delta_vs_cpu"], float(
+                (p_card[path].float() - p_cpu[path].float()).abs().max() / scale))
+        out[arch] = {"loss_cpu": l_cpu, "loss_card": l_card, "loss_err": loss_err, **worst}
+        print(f"  {arch} smoke train step, card vs CPU: loss {l_card:.7f} / {l_cpu:.7f} (relative {loss_err:.2e}, "
+              f"tol {TRAIN_LOSS_TOL}); moments m {worst['m']:.2e}, v {worst['v']:.2e}; parameter deltas against "
+              f"AdamW on the card's moments {worst['delta']:.2e} (tol {TRAIN_GRAD_TOL} of each leaf's largest; "
+              f"against the CPU's deltas {worst['delta_vs_cpu']:.2e}, not held)", flush=True)
+        check(loss_err <= TRAIN_LOSS_TOL, f"{arch}: card loss {l_card} vs CPU {l_cpu}")
+        check(max(worst["m"], worst["v"], worst["delta"]) <= TRAIN_GRAD_TOL,
+              f"{arch}: card train step differs from the CPU's: {worst}")
+    return out
+
+
+def launcher_runs(dev) -> dict:
+    """Step 12 (c): ``repro_torch.launch.train.train`` on the card, on the
+    smoke config: the loss falls over 30 steps at lr 1e-2, and a run that
+    crashes at step 14 (a checkpoint at step 10), rerun with ``restore`` on
+    the same session, ends on the uninterrupted run's final loss."""
+    from repro_torch.core import Cluster
+    from repro_torch.launch.train import train
+
+    t0 = time.perf_counter()
+    out = train("llama3_2-1b", smoke=True, steps=30, batch=8, seq=64, checkpoint_every=100, lr=1e-2, device=dev)
+    losses = out["losses"]
+    drop = float(np.mean(losses[:5]) - np.mean(losses[-5:]))
+    print(f"  launcher, 30 smoke steps at lr 1e-2: mean loss of the first 5 {np.mean(losses[:5]):.4f}, of the "
+          f"last 5 {np.mean(losses[-5:]):.4f} (drop {drop:.4f}, at least 0.5 asked); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(drop >= 0.5, f"the launcher's loss did not fall: {losses}")
+    kw = dict(smoke=True, steps=20, batch=4, seq=64, checkpoint_every=10, seed=3, device=dev)
+    a = train("llama3_2-1b", **kw)
+    cluster = Cluster(n_data_providers=4, n_metadata_providers=4, shared_cache_bytes=0)
+    try:
+        session = cluster.session()
+        try:
+            train("llama3_2-1b", session=session, fail_at_step=14, **kw)
+            fail("the injected failure at step 14 did not raise")
+        except RuntimeError as e:
+            check("injected failure" in str(e), f"unexpected error: {e}")
+        b = train("llama3_2-1b", session=session, restore=True, **kw)
+    finally:
+        cluster.close()
+    rel = abs(a["losses"][-1] - b["losses"][-1]) / abs(a["losses"][-1])
+    print(f"  launcher crash at step 14 and rerun with restore: final loss {b['losses'][-1]:.6f} against the "
+          f"uninterrupted run's {a['losses'][-1]:.6f} (relative {rel:.2e}, tol 1e-4)", flush=True)
+    check(rel <= 1e-4, f"the resumed run ends on {b['losses'][-1]}, the uninterrupted on {a['losses'][-1]}")
+    return {"loss_drop": drop, "resume_rel": rel}
+
+
+def training_phase(dev, kernels) -> dict:
+    """Step 12: the training path, which launches neither CUDA kernel (its
+    attention is ``impl="xla"``): (a) and (d) ``llama3_2-1b`` at full width
+    and depth, (b) one step of each family's smoke config against the CPU,
+    (c) the launcher. The kernels' counters are read across all of it."""
+    cfg = get_train_config()
+    for k in kernels:
+        k.launches = 0
+    res = llama_training(cfg, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["families"] = family_steps(dev)
+    res["launcher"] = launcher_runs(dev)
+    res["launches"] = {"flash_attention": kernels[0].launches, "paged_attention": kernels[1].launches}
+    print(f"  kernel launches across step 12: {res['launches']}", flush=True)
+    check(all(n == 0 for n in res["launches"].values()), f"a CUDA kernel ran in training: {res['launches']}")
+    return res
+
+
+def get_train_config():
+    from repro_torch.configs import get_config
+
+    cfg = get_config("llama3_2-1b")
+    check((cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.param_dtype, cfg.compute_dtype, cfg.grad_accum,
+           cfg.remat, cfg.use_pallas) == (16, 2048, 128256, "float32", "bfloat16", 4, "full", False),
+          f"unexpected config {cfg}")
+    return cfg
 
 
 def main() -> None:
@@ -1742,8 +2079,15 @@ def main() -> None:
     print(f"before step 11: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated", flush=True)
     seamless = seamless_phase(seamless, dev, kernels)
     print(f"seamless: {json.dumps(seamless)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 12. results
+    # 12. training: llama3_2-1b at full width and depth, every family's smoke step, the launcher
+    print("training:", flush=True)
+    training = training_phase(dev, kernels)
+    print(f"training: {json.dumps(training)}", flush=True)
+
+    # 13. results
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:79"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -1759,12 +2103,16 @@ def main() -> None:
             "launches_danube": launches_danube[name], "launches_mixtral": mixtral["launches"][name],
             "launches_mamba2": mamba["launches"][name], "launches_zamba2": zamba["launches"][name],
             "launches_mistral": mistral["launches"][name], "launches_seamless": seamless["launches"][name],
+            "launches_train": training["launches"][name],
             "shapes": rows[name], **grids[name],
         })
     measures = ("prefill_ms", "decode_step_ms", "decode_step_least_ms", "decode_tok_s", "build_peak_gib",
                 "run_peak_gib", "cross_pool_bytes", "self_pool_bytes", "step_span_ms", "step_busy_ms",
                 "prefill_launches", "launches")
-    print(json.dumps({"kernels": kernels, "seamless": {k: seamless[k] for k in measures}}), flush=True)
+    train_measures = ("step_ms", "tok_s", "peak_gib", "first_loss", "last_loss", "xla_ref_rel", "trace",
+                      "checkpoint")
+    print(json.dumps({"kernels": kernels, "seamless": {k: seamless[k] for k in measures},
+                      "training": {k: training[k] for k in train_measures}}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

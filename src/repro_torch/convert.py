@@ -5,7 +5,8 @@
 ``encdec``/``audio``) -- as nested dicts of numpy arrays,
 e.g. ``jax.tree.map(np.asarray, params)`` of
 ``build_model(cfg).init(PRNGKey(0))[0]`` -- and returns the port's params
-with the same structure, shapes, dtypes and values. No JAX is imported here.
+with the same structure, shapes, dtypes and values; :func:`opt_state_from_jax`
+does the same for the AdamW state. No JAX is imported here.
 """
 
 from __future__ import annotations
@@ -111,3 +112,14 @@ def params_from_jax(params_np, cfg: ModelConfig, device="cuda"):
     shapes = param_shapes(cfg)
     device = resolve_device(device)
     return _convert(params_np, shapes, device, ())
+
+
+def opt_state_from_jax(opt_state_np, cfg: ModelConfig, device="cuda"):
+    """JAX AdamW state (numpy leaves: ``{"m", "v", "step"}``, as
+    ``jax.tree.map(np.asarray, adamw_init(params))``) -> the port's on
+    ``device``: the moments mapped as :func:`params_from_jax` maps the
+    params, ``step`` a 0-dim int32 tensor."""
+    device = resolve_device(device)
+    return {"m": params_from_jax(opt_state_np["m"], cfg, device),
+            "v": params_from_jax(opt_state_np["v"], cfg, device),
+            "step": torch.tensor(int(np.asarray(opt_state_np["step"])), dtype=torch.int32, device=device)}

@@ -7,7 +7,12 @@
     :mod:`repro_torch.kernels.flash_attention` / ``paged_attention`` decide
     from the tensors' device; a CUDA tensor never falls back);
   * ``"ref"`` -- the quadratic oracles of :mod:`repro_torch.kernels.ref`,
-    for tests and for ``chip_smoke.py``'s comparisons only.
+    for tests and for ``chip_smoke.py``'s comparisons only;
+  * ``"xla"`` (flash attention only) -- the JAX package's own XLA path
+    (``_causal_tiled_flash`` over ``_flash_xla``: q-chunks with an f32
+    softmax) in plain PyTorch, so that autograd runs through it: the
+    training loss's attention, as in the JAX package, whose Pallas kernel
+    has no backward either.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.paged_attention import paged_attention_cuda
 
-_IMPLS = (None, "ref")
+_IMPLS = (None, "ref", "xla")
 
 
 def _check_impl(impl: Optional[str]) -> None:
@@ -37,15 +42,72 @@ def flash_attention(
     causal: bool = True,
     window: Optional[int] = None,
     q_start: int = 0,
+    q_chunk: int = 1024,
     impl: Optional[str] = None,
 ) -> torch.Tensor:
+    """``q_chunk`` is the query chunk of ``impl="xla"`` (``cfg.attn_chunk``);
+    the other paths take no chunk."""
     _check_impl(impl)
     if impl == "ref":
         return _ref.attention_ref(q, k, v, causal=causal, window=window, q_start=q_start)
+    if impl == "xla":
+        return _causal_tiled_flash(q, k, v, causal=causal, window=window, q_start=q_start, q_chunk=q_chunk)
     return flash_attention_cuda(
         q.contiguous(), k.contiguous(), v.contiguous(),
         causal=causal, window=window, q_start=q_start,
     )
+
+
+def _causal_tiled_flash(q, k, v, *, causal, window, q_start, q_chunk):
+    """Binary causal tiling around :func:`_flash_xla`, as the JAX package's:
+    the lower half of a causal square only needs the first half of the
+    keys, so it recurses on that half-size square, (2/3)·S² scores instead
+    of S², each query still seeing the same keys in the same chunk order."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    if not causal or window is not None or Sq != Sk or q_start != 0 or Sq < 2 * q_chunk or Sq % 2:
+        return _flash_xla(q, k, v, causal=causal, window=window, q_start=q_start, q_chunk=q_chunk)
+    half = Sq // 2
+    lo = _causal_tiled_flash(q[:, :half], k[:, :half], v[:, :half],
+                             causal=True, window=None, q_start=0, q_chunk=q_chunk)
+    hi = _flash_xla(q[:, half:], k, v, causal=True, window=None, q_start=half, q_chunk=q_chunk)
+    return torch.cat([lo, hi], dim=1)
+
+
+def _flash_xla(q, k, v, *, causal, window, q_start, q_chunk):
+    """A loop over q-chunks with an f32 softmax (the JAX package's
+    ``lax.scan``). With a sliding window each chunk sees a static slice of
+    ``window + q_chunk`` keys. Scores are f32 (bf16 operands upcast: their
+    products are exact in f32), p is cast to v's dtype before P·V, which
+    sums in f32, and each chunk's output is cast to q's dtype."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    k = _ref.repeat_kv(k, H)
+    v = _ref.repeat_kv(v, H)
+    q_chunk = min(q_chunk, Sq)
+    if Sq % q_chunk:
+        q_chunk = next(c for c in range(q_chunk, 0, -1) if Sq % c == 0)
+    scale = 1.0 / (D ** 0.5)
+    windowed = window is not None and Sk > window + q_chunk
+    w_k = min(Sk, window + q_chunk) if windowed else Sk
+    outs = []
+    for i in range(Sq // q_chunk):
+        chunk_start = q_start + i * q_chunk
+        start = min(max(chunk_start - (w_k - q_chunk), 0), Sk - w_k) if windowed else 0
+        ks, vs = k[:, start:start + w_k], v[:, start:start + w_k]
+        qc = q[:, i * q_chunk:(i + 1) * q_chunk]
+        s = torch.einsum("bqhd,bkhd->bhqk", qc.float(), ks.float()) * scale
+        qpos = chunk_start + torch.arange(q_chunk, device=q.device)
+        kpos = start + torch.arange(w_k, device=q.device)
+        mask = torch.ones((q_chunk, w_k), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        s = torch.where(mask, s, torch.full((), _ref.NEG_INF, device=q.device))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", p.to(vs.dtype).float(), vs.float())
+        outs.append(o.to(q.dtype))
+    return torch.cat(outs, dim=1)
 
 
 # =============================== paged decode attention ===============================

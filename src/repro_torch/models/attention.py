@@ -65,8 +65,9 @@ def attention_train(
     return_kv: bool = False,
     impl: Optional[str] = None,
 ):
-    """Full-sequence attention (prefill, encoder, cross). With ``return_kv``
-    also returns the (rotated) ``(k, v)`` for the paged cache.
+    """Full-sequence attention (training, prefill, encoder, cross). With
+    ``return_kv`` also returns the (rotated) ``(k, v)`` for the paged cache.
+    ``impl`` goes to :func:`ops.flash_attention`; training passes ``"xla"``.
 
     ``kv_src`` switches to cross-attention: keys and values projected from
     that sequence, no RoPE, non-causal. The sliding window applies only to
@@ -80,7 +81,7 @@ def attention_train(
     else:
         q, k, v = qkv(params, x, cfg, None, rope=rope)
     window = cfg.sliding_window if causal else None
-    o = ops.flash_attention(q, k, v, causal=causal, window=window, impl=impl)
+    o = ops.flash_attention(q, k, v, causal=causal, window=window, q_chunk=cfg.attn_chunk, impl=impl)
     out = out_proj(params, o, cfg)
     if return_kv:
         return out, (k, v)

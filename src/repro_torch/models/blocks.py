@@ -1,14 +1,16 @@
 """Pre-norm blocks, the counterpart of :mod:`repro.models.blocks`: the
 transformer block (dense or MoE), the encoder-decoder's decoder block (of
-:func:`repro.models.lm._encdec_lm`) and the Mamba2 block. The JAX package's
-``lax.scan`` over stacked layers becomes a Python loop in
-:mod:`repro_torch.models.lm`."""
+:func:`repro.models.lm._encdec_lm`) and the Mamba2 block, and the training
+loop over stacked layers with remat (:func:`scan_apply`). The JAX package's
+``lax.scan`` over stacked layers becomes a Python loop."""
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Callable, List, Optional
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -117,3 +119,58 @@ def ssm_block_apply(params, x: torch.Tensor, cfg: ModelConfig, *, return_state: 
 def ssm_block_decode(params, x: torch.Tensor, state: ssm_mod.SSMState, cfg: ModelConfig):
     y, state = ssm_mod.ssm_decode(params["ssm"], rmsnorm(x, params["ln"]), state, cfg)
     return x + y, state
+
+
+# ------------------------------ remat and the layer loop ------------------------------
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of matrix
+    products without batch dims (the 2-D ``mm`` a projection lowers to),
+    recompute everything else (``bmm``, the attention einsums, included)."""
+    return CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpoint_wrap(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` under the config's remat policy: ``"none"`` as it is,
+    ``"full"`` saving only its inputs, ``"dots"`` also the outputs of
+    matrix products without batch dims."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat == "dots":
+        context = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False, context_fn=context)
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
+def unstack(tree, n: int) -> List:
+    """A tree of stacked ``(n, ...)`` leaves as ``n`` per-layer trees, each
+    leaf taken by one ``unbind``: its backward stacks the layers' gradients
+    once, where indexing each layer would allocate a zero tensor the size of
+    the whole stack per layer."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def scan_apply(layers: List, x: torch.Tensor, body_fn: Callable, cfg: ModelConfig):
+    """``body_fn(layer_params, x) -> (x, aux)`` over the per-layer trees
+    ``layers`` (:func:`unstack`), each ``cfg.remat_group`` layers under one
+    checkpoint when the group divides the depth (else each layer under its
+    own); the aux losses summed in f32. Returns (x, aux)."""
+    g = cfg.remat_group if cfg.remat_group > 1 and len(layers) % cfg.remat_group == 0 else 1
+
+    def group_fn(x, *group):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp in group:
+            x, a = body_fn(lp, x)
+            aux = aux + a
+        return x, aux
+
+    wrapped = checkpoint_wrap(group_fn, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, len(layers), g):
+        x, a = wrapped(x, *layers[i:i + g])
+        aux = aux + a
+    return x, aux

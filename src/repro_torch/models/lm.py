@@ -1,4 +1,4 @@
-"""Top-level models, one constructor per family: the serving half of
+"""Top-level models, one constructor per family, the counterpart of
 :mod:`repro.models.lm`.
 
 ``build_model(cfg)`` returns a :class:`Model` of plain functions:
@@ -13,13 +13,22 @@
 * ``decode_step(params, cache, tokens, impl=None) -> (logits, cache)``, which
   writes the new token's K/V (and an int8 pool's scales) into the cache's
   pools and the new SSM states into its state stacks, in place;
-* ``init_cache(batch, seq_len, device="cuda") -> cache``.
+* ``init_cache(batch, seq_len, device="cuda") -> cache``;
+* ``train_loss(params, batch, impl="xla") -> (loss, metrics)``, ``batch``
+  the JAX package's dict: ``tokens`` (or ``embeds`` for a ``vlm`` backbone;
+  ``enc_embeds`` and ``tokens`` for the encoder-decoder) and ``labels``
+  (-1 is padding). Differentiable: autograd runs through it, remat as
+  ``cfg.remat`` says.
 
 Families ``dense``, ``moe`` and ``vlm`` (the decoder with an embeddings
 input), ``ssm`` (Mamba2), ``hybrid`` (Mamba2 groups with one shared
 attention block after each), and ``encdec``/``audio`` (an encoder over
 precomputed frame embeddings and a decoder with cross-attention): every
-family of the JAX package. Serving only: no training loss and no autograd.
+family of the JAX package. ``prefill`` and ``decode_step`` run without
+autograd; the training loss's attention is ``ops.flash_attention``'s
+``impl="xla"`` (the JAX package's XLA path in plain PyTorch), chosen by
+``use_pallas=False`` as in the JAX package, whose Pallas kernel has no
+backward; neither CUDA kernel runs in training.
 """
 
 from __future__ import annotations
@@ -35,10 +44,11 @@ from repro_torch.models import attention as attn
 from repro_torch.models import blocks as B
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import embed, rmsnorm, unembed
+from repro_torch.models.layers import cross_entropy, embed, rmsnorm, unembed
 from repro_torch.models.modules import embed_init
 
 PORTED = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec", "audio")
+MOE_AUX_WEIGHT = 0.01
 
 # leaves the JAX package uses in f32 whatever the compute dtype: the MoE
 # router (gates in f32), the SSM decay, skip and dt bias (used uncast), and
@@ -52,6 +62,7 @@ class Model:
     prefill: Any
     decode_step: Any
     init_cache: Any
+    train_loss: Any
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -132,6 +143,35 @@ def _inputs_to_h(params, inputs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     if inputs.is_floating_point():
         return inputs.to(cfg.cdtype())
     return embed(params["embed"], inputs, cfg)
+
+
+def _train_impl(cfg: ModelConfig, impl: str) -> str:
+    """The training loss's attention: ``"xla"``, or ``"ref"`` for checks.
+    Neither CUDA kernel has a backward, nor has the JAX package's Pallas
+    kernel, so ``use_pallas=True`` raises as it fails there."""
+    if cfg.use_pallas:
+        raise NotImplementedError(
+            "use_pallas=True: the flash kernel has no backward; train with use_pallas=False (impl='xla')")
+    if impl not in ("xla", "ref"):
+        raise ValueError(f"training attention is impl='xla' (or 'ref'), not {impl!r}")
+    return impl
+
+
+def _batch_h(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
+    """A training batch's input: ``embeds`` in the compute dtype, or the
+    embedded ``tokens``."""
+    if "embeds" in batch:
+        return batch["embeds"].to(cfg.cdtype())
+    return embed(params["embed"], batch["tokens"], cfg)
+
+
+def _ce(params, h: torch.Tensor, batch, cfg: ModelConfig):
+    """(ce, acc) of the f32 tied unembedding of ``h`` against ``batch["labels"]``."""
+    return cross_entropy(unembed(params["embed"], h, cfg), batch["labels"], cfg.vocab_size)
+
+
+def _no_aux(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _pool_cache(cfg: ModelConfig, pool_k, pool_v, tables, page_pos) -> Dict[str, torch.Tensor]:
@@ -230,7 +270,18 @@ def _decoder_lm(cfg: ModelConfig) -> Model:
         logits = unembed(params["embed"], h, cfg)[:, 0]
         return logits, {"kv": dict(kv, page_pos=torch.stack(page_pos)), "lengths": lengths + 1}
 
-    return Model(init, prefill, decode_step, init_cache)
+    def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla"):
+        """``loss = ce + MOE_AUX_WEIGHT * aux``; metrics ``ce``, ``aux``
+        (the MoE load-balance loss summed over layers, 0 for a dense model),
+        ``acc``."""
+        impl = _train_impl(cfg, impl)
+        h = _batch_h(params, batch, cfg)
+        body = lambda p, x: B.block_apply(p, x, cfg, impl=impl)  # noqa: E731
+        h, aux = B.scan_apply(B.unstack(params["blocks"], cfg.n_layers), h, body, cfg)
+        ce, acc = _ce(params, rmsnorm(h, params["ln_f"]), batch, cfg)
+        return ce + MOE_AUX_WEIGHT * aux, {"ce": ce, "aux": aux, "acc": acc}
+
+    return Model(init, prefill, decode_step, init_cache, train_loss)
 
 
 # ================================ pure SSM (mamba2) ================================
@@ -285,7 +336,17 @@ def _ssm_lm(cfg: ModelConfig) -> Model:
         logits = unembed(params["embed"], h, cfg)[:, 0]
         return logits, {"ssm": dict(states), "lengths": cache["lengths"] + 1}
 
-    return Model(init, prefill, decode_step, init_cache)
+    def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla"):
+        """The cross-entropy; metrics ``ce``, ``acc``. No attention:
+        ``impl`` is checked for the common signature."""
+        _train_impl(cfg, impl)
+        h = _batch_h(params, batch, cfg)
+        body = lambda p, x: (B.ssm_block_apply(p, x, cfg), _no_aux(x))  # noqa: E731
+        h, _ = B.scan_apply(B.unstack(params["blocks"], cfg.n_layers), h, body, cfg)
+        ce, acc = _ce(params, rmsnorm(h, params["ln_f"]), batch, cfg)
+        return ce, {"ce": ce, "acc": acc}
+
+    return Model(init, prefill, decode_step, init_cache, train_loss)
 
 
 # ================================ hybrid (zamba2) ================================
@@ -353,7 +414,22 @@ def _hybrid_lm(cfg: ModelConfig) -> Model:
         return logits, {"ssm": dict(states), "kv": dict(kv, page_pos=torch.stack(page_pos)),
                         "lengths": lengths + 1}
 
-    return Model(init, prefill, decode_step, init_cache)
+    def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla"):
+        """Each group's Mamba2 layers (remat groups within it), then the
+        shared block under its own checkpoint; metrics ``ce``, ``acc``."""
+        impl = _train_impl(cfg, impl)
+        h = _batch_h(params, batch, cfg)
+        flat = _tree_map(lambda _, t: t.reshape(cfg.n_layers, *t.shape[2:]), params["mamba"])
+        mamba = B.unstack(flat, cfg.n_layers)
+        ssm_body = lambda p, x: (B.ssm_block_apply(p, x, cfg), _no_aux(x))  # noqa: E731
+        shared = B.checkpoint_wrap(lambda p, x: B.block_apply(p, x, cfg, impl=impl), cfg)
+        for g in range(n_groups):
+            h, _ = B.scan_apply(mamba[g * per_group:(g + 1) * per_group], h, ssm_body, cfg)
+            h, _ = shared(params["shared_attn"], h)
+        ce, acc = _ce(params, rmsnorm(h, params["ln_f"]), batch, cfg)
+        return ce, {"ce": ce, "acc": acc}
+
+    return Model(init, prefill, decode_step, init_cache, train_loss)
 
 
 # ================================ encoder-decoder ================================
@@ -436,4 +512,19 @@ def _encdec_lm(cfg: ModelConfig) -> Model:
         logits = unembed(params["embed"], h, cfg)[:, 0]
         return logits, dict(cache, self_kv=dict(self_kv, page_pos=torch.stack(page_pos)), lengths=lengths + 1)
 
-    return Model(init, prefill, decode_step, init_cache)
+    def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla"):
+        """Encode ``batch["enc_embeds"]``, then the decoder over
+        ``batch["tokens"]``, each decoder layer under its own checkpoint;
+        metrics ``ce``, ``acc``."""
+        impl = _train_impl(cfg, impl)
+        enc = lambda p, x: B.block_apply(p, x, cfg, causal=False, impl=impl)  # noqa: E731
+        h, _ = B.scan_apply(B.unstack(params["encoder"], n_enc), batch["enc_embeds"].to(cfg.cdtype()), enc, cfg)
+        enc_out = rmsnorm(h, params["ln_enc"])
+        dec = B.checkpoint_wrap(lambda p, x: B.dec_block_apply(p, x, enc_out, cfg, impl=impl)[0], cfg)
+        h = embed(params["embed"], batch["tokens"], cfg)
+        for p in B.unstack(params["decoder"], n_dec):
+            h = dec(p, h)
+        ce, acc = _ce(params, rmsnorm(h, params["ln_dec"]), batch, cfg)
+        return ce, {"ce": ce, "acc": acc}
+
+    return Model(init, prefill, decode_step, init_cache, train_loss)

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card;
 blob mode's pages through the card; the Mamba2 layers, the ssm, hybrid and
-encoder-decoder smoke models and the int8 KV path on the card against the
-CPU.
+encoder-decoder smoke models, the int8 KV path, the rmsnorm autograd
+Function and a smoke train step on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips where there is no card. On a
 machine with one (and ``nvcc``; the kernels build on first use):
@@ -398,3 +398,63 @@ def test_encdec_smoke_model_on_the_card_matches_the_cpu(dev):
             got, gc = model.decode_step(card, gc, nxt.to(dev))
     assert paged_attention_cuda.launches - n_paged == 3 * 2 * cfg.n_dec_layers
     assert all(torch.equal(gc["cross_kv"][n], t) for n, t in cross.items())
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 1e-2)])
+def test_rmsnorm_function_on_the_card_matches_the_cpu(dev, dtype, tol):
+    """The rmsnorm autograd Function's output, dx and dscale."""
+    from repro_torch.models.layers import rmsnorm
+
+    rng = np.random.default_rng(13)
+    x, g = (torch.from_numpy(rng.standard_normal((4, 33, 256), dtype=np.float32)).to(getattr(torch, dtype))
+            for _ in range(2))
+    s = torch.from_numpy(rng.standard_normal(256, dtype=np.float32))
+    outs = []
+    for d in ("cpu", dev):
+        xd, sd = x.to(d).requires_grad_(True), s.to(d).requires_grad_(True)
+        y = rmsnorm(xd, sd)
+        outs.append((y.detach(), *torch.autograd.grad(y, (xd, sd), g.to(d))))
+    for want, got in zip(*outs):
+        assert got.dtype == want.dtype
+        close(got, want, tol)
+
+
+def test_smoke_train_step_on_the_card_matches_the_cpu(dev):
+    """One train step (4 microbatches) of llama3_2-1b's smoke config from
+    the same weights and batch: the loss within 1e-5 and the step's first
+    moment (linear in the gradient) within 1e-4 of each leaf's largest; no
+    CUDA kernel runs in training."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+
+    cfg = get_config("llama3_2-1b").smoke()
+    model = build_model(cfg)
+    params0 = model.init(seed=0, device="cpu")
+    rng = np.random.default_rng(14)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    n = (flash_attention_cuda.launches, paged_attention_cuda.launches)
+    runs = []
+    for d in ("cpu", dev):
+        params = _copy(params0, d)
+        step = make_train_step(model, cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10))
+        _, opt_state, metrics = step(params, adamw_init(params), {k: v.to(d) for k, v in batch.items()})
+        runs.append((float(metrics["loss"]), _flat(opt_state["m"])))
+    (want_loss, want_m), (loss, m) = runs
+    assert abs(loss - want_loss) <= 1e-5 * max(1.0, abs(want_loss))
+    for path, w in want_m.items():
+        assert float((m[path].cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max()), path
+    assert (flash_attention_cuda.launches, paged_attention_cuda.launches) == n
+
+
+def _copy(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _copy(v, dev) for k, v in tree.items()}
+    return tree.to(dev, copy=True)
+
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        return {p: v for k in sorted(tree) for p, v in _flat(tree[k], path + (k,)).items()}
+    return {path: tree}
