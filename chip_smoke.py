@@ -109,10 +109,26 @@ JAX package), and it:
     uninterrupted run's loss; (d) (a)'s whole state (params and moments)
     saved to and restored from a ``BlobCheckpointer`` at 1 MiB pages, bit
     for bit; and checks both kernels' counters read 0 across it;
-13. prints a JSON line with each kernel's launches, error, times and grid at
+13. runs the paper's application, which launches neither kernel
+    (``repro_torch.launch.supernovae`` at the paper's deployment: 64
+    regions of 2048 x 2048 f32, one 16 MiB segment each, so an epoch is the
+    1 GiB hot window; 64 KiB pages, 20 data and 20 metadata providers, 8
+    detector sessions, 8 epochs): the telescope streams each epoch into the
+    versioned blob while the detectors read their regions' windows of each
+    frame pair and difference-image them on the card; fails unless every
+    detector's hits in every pair equal numpy's ``detect_transients`` on
+    the same bytes, region by region, the supernovae found are the ground
+    truth less those that ignite in the last epoch, each in the pair after
+    it ignites, and the detectors' tensors lay on the card; prints the
+    telescope's write ms and MB/s per epoch, each detector's read MB/s and
+    the aggregate, the detection latency from publication (p50, max), each
+    pair's H2D ms and GB/s and stream ms, one pair's detection replayed
+    alone beside its byte bound, the device's busy share (at most), peak
+    memory and the store's counters;
+14. prints a JSON line with each kernel's launches, error, times and grid at
     the main-path shape (and its times at the danube, mixtral, zamba2,
-    mistral-large and seamless shapes, and its launches in steps 5-12) and
-    the measures of steps 11 and 12, and, as the last line, ``{"ok": true,
+    mistral-large and seamless shapes, and its launches in steps 5-13) and
+    the measures of steps 11-13, and, as the last line, ``{"ok": true,
     "device": {...}}``.
 
 Any failure exits nonzero before the last line is printed.
@@ -126,6 +142,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1843,6 +1860,150 @@ def get_train_config():
     return cfg
 
 
+# ------------------------------ step 13: the sky application ------------------------------
+SKY_DEVICE_TYPE = "cuda"  # where the detectors' tensors must lie (a CPU rehearsal sets "cpu")
+
+
+def sky_pair_times(res) -> dict:
+    """Per frame pair (by its later epoch), over its detectors' CUDA-event
+    spans: the summed H2D ms and the rate, and the summed stream ms from the
+    copy's end to the hits (the device's work plus its waits for the host
+    between ops, which the detector threads' contention for the interpreter
+    stretches); ``None`` where no span was recorded (no card)."""
+    dep = res["deployment"]
+    pair_bytes = 2 * dep["n_regions"] * dep["region_px"] ** 2 * 4
+    rows = {}
+    for epoch in range(2, dep["epochs"] + 1):
+        spans = [s for s in res["device_spans"] if s["epoch"] == epoch]
+        h2d = sum(s["copied_ms"] - s["start_ms"] for s in spans) if spans else None
+        rows[epoch] = dict(bytes=pair_bytes, h2d_ms=h2d, h2d_GBps=pair_bytes / h2d / 1e6 if spans else None,
+                           stream_ms=sum(s["done_ms"] - s["copied_ms"] for s in spans) if spans else None)
+    return rows
+
+
+def sky_replay(dep, dev, threshold: float, iters: int = 10) -> dict:
+    """One frame pair's detection replayed alone on the card, at the run's
+    shapes: each detector's ``hit_rows`` over its block of regions in turn
+    (its ``nonzero`` syncing the host), between CUDA events, mean of
+    ``iters`` after a warm-up. Frames of unit noise, one hit a region. The
+    bound: both frames read once at the card's memory rate."""
+    from repro_torch.data.detect import hit_rows
+
+    n, px, n_det = dep["n_regions"], dep["region_px"], dep["n_detectors"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    before = torch.randn((n, px, px), generator=gen, device=dev)
+    after = before + torch.randn((n, px, px), generator=gen, device=dev)
+    after[:, 0, 0] += 1000.0
+    per = -(-n // n_det)
+    blocks = [slice(k * per, (k + 1) * per) for k in range(n_det)]
+    hits = []
+
+    def pair():
+        hits.append(sum(int(hit_rows(before[b], after[b], threshold).shape[0]) for b in blocks))
+
+    pair()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        pair()
+    end.record()
+    torch.cuda.synchronize()
+    check(hits == [n] * (iters + 1), f"replayed pair found {hits[:3]} hits, expected {n}")
+    nbytes = 2 * n * px * px * 4
+    return {"device_ms": start.elapsed_time(end) / iters, "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "calls": n_det}
+
+
+def sky_phase(dev, card, kernels, smoke: bool = False) -> dict:
+    """Step 13: ``repro_torch.launch.supernovae`` at the paper's deployment
+    (or the example's, with ``smoke``). Fails unless (a) every detector's
+    hits in every frame pair equal numpy's ``detect_transients`` on the same
+    ``readv`` bytes, region by region; (b) each supernova is found in the
+    pair that ends one epoch after it ignites, and nowhere else (one that
+    ignites in the last epoch is not found); (c) the detectors' tensors lay
+    on the card. Neither CUDA kernel may run."""
+    from repro_torch.data.sky import detect_transients
+    from repro_torch.launch.supernovae import THRESHOLD, Deployment, run
+
+    dep = Deployment.smoke() if smoke else Deployment.paper()
+    if not smoke:
+        check((dep.n_regions, dep.region_px, dep.page_size, dep.n_data_providers, dep.n_metadata_providers,
+               dep.n_detectors, dep.epochs, THRESHOLD) == (64, 2048, 64 << 10, 20, 20, 8, 8, 150.0),
+              f"not the paper's deployment: {dep}")
+    px = dep.region_px
+    lock, checked, mismatches = threading.Lock(), [], []
+
+    def on_pair(k, epoch, regions, before, after, hits):
+        for r, b, a, got in zip(regions, before, after, hits):
+            img_b = b[: px * px * 4].view(np.float32).reshape(px, px)
+            img_a = a[: px * px * 4].view(np.float32).reshape(px, px)
+            want = detect_transients(img_b, img_a, threshold=THRESHOLD)
+            with lock:
+                checked.append((k, epoch, r))
+                if got != want:
+                    mismatches.append((k, epoch, r, got[:3], want[:3]))
+
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = run(smoke, device=dev, on_pair=on_pair)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"flash_attention": kernels[0].launches, "paged_attention": kernels[1].launches}
+    dep = res["deployment"]
+    n_pairs = dep["n_detectors"] * (dep["epochs"] - 1)
+    # (c)
+    check(res["detector_device"] == [SKY_DEVICE_TYPE], f"detector tensors on {res['detector_device']}")
+    check(dev.type != "cuda" or len(res["device_spans"]) == n_pairs, "a frame pair recorded no device span")
+    # (a)
+    check(len(checked) == dep["n_regions"] * (dep["epochs"] - 1),
+          f"{len(checked)} region pairs checked against numpy, expected {dep['n_regions'] * (dep['epochs'] - 1)}")
+    check(not mismatches, f"device detections differ from numpy's: {mismatches[:4]}")
+    # (b)
+    last = dep["epochs"]
+    want = {(ign + 1, r, x, y) for r, x, y, ign in res["truth"] if ign < last}
+    got = {(e, r, x, y) for e, lst in res["detections"].items() for r, hs in lst for x, y, _ in hs}
+    check(got == want and want, f"detections {sorted(got)} != ground truth {sorted(want)}")
+    check(all(n == 0 for n in launches.values()), f"a CUDA kernel ran in the sky phase: {launches}")
+
+    writes = [(w["write_s"] * 1e3, w["bytes"] / w["write_s"] / 1e6) for w in res["writes"]]
+    lat = sorted(res["latency_ms"].values())
+    pairs = sky_pair_times(res)
+    store = res["store"]
+    print(f"sky on {card}: {dep['n_regions']} regions of {dep['region_px']}^2 f32, {dep['page_size'] >> 10} KiB "
+          f"pages, {dep['n_data_providers']} + {dep['n_metadata_providers']} providers, "
+          f"{dep['n_detectors']} detectors, {dep['epochs']} epochs in {res['wall_s']:.2f} s", flush=True)
+    print(f"  telescope write per epoch (ms, MB/s): {[(round(a, 1), round(b, 1)) for a, b in writes]}", flush=True)
+    print(f"  detector read MB/s: {[round(d['read_MBps'], 1) for d in res['per_detector']]}, aggregate "
+          f"{res['aggregate_read_MBps']:.1f} MB/s", flush=True)
+    print(f"  detection latency from publication: p50 {statistics.median(lat):.1f} ms, max {lat[-1]:.1f} ms",
+          flush=True)
+    for epoch, p in pairs.items():
+        times = ("not measured" if p["h2d_ms"] is None else
+                 f"H2D {p['h2d_ms']:.2f} ms ({p['h2d_GBps']:.2f} GB/s), stream {p['stream_ms']:.3f} ms")
+        print(f"  frame pair ({epoch - 1}, {epoch}) on {card}: {p['bytes']} bytes, {times}, summed over "
+              f"{dep['n_detectors']} detectors' streams", flush=True)
+    replay = sky_replay(dep, dev, THRESHOLD)
+    print(f"  one frame pair's detection replayed alone on {card}: {replay['device_ms']:.3f} ms in "
+          f"{replay['calls']} calls, bound {replay['bound_ms']:.4f} ms (bytes: {replay['bytes']})", flush=True)
+    busy = None if res["busy_ms"] is None else res["busy_ms"] / res["span_ms"]
+    print(f"  device busy at most {'not measured' if busy is None else f'{busy:.2%}'} of the phase on {card} "
+          f"(the union of the streams' spans); peak "
+          f"memory {peak / 2**30:.2f} GiB; store {store['storage_bytes']} bytes, {store['data_rounds']} RPC "
+          f"rounds, cache hit rate {store['hit_rate']:.1%}, first reads {store['first_read_hit_rate']:.1%} warm; "
+          f"found {len(got)} of {len(res['truth'])} supernovae; kernel launches {launches}", flush=True)
+    return {"launches": launches, "deployment": dep, "wall_s": res["wall_s"],
+            "write_ms": [w[0] for w in writes], "write_MBps": [w[1] for w in writes],
+            "read_MBps": [d["read_MBps"] for d in res["per_detector"]],
+            "aggregate_read_MBps": res["aggregate_read_MBps"],
+            "latency_p50_ms": statistics.median(lat), "latency_max_ms": lat[-1],
+            "pairs": pairs, "replay": replay, "busy_share": busy, "peak_gib": peak / 2**30,
+            "store": store, "first_read_hit_rates": [d["first_read_hit_rate"] for d in res["per_detector"]],
+            "hit_rates": [d["hit_rate"] for d in res["per_detector"]],
+            "truth": res["truth"], "found": res["found"]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -2086,8 +2247,14 @@ def main() -> None:
     print("training:", flush=True)
     training = training_phase(dev, kernels)
     print(f"training: {json.dumps(training)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 13. results
+    # 13. the sky application at the paper's deployment
+    print("sky:", flush=True)
+    sky = sky_phase(dev, card, kernels)
+
+    # 14. results
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:79"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -2103,7 +2270,7 @@ def main() -> None:
             "launches_danube": launches_danube[name], "launches_mixtral": mixtral["launches"][name],
             "launches_mamba2": mamba["launches"][name], "launches_zamba2": zamba["launches"][name],
             "launches_mistral": mistral["launches"][name], "launches_seamless": seamless["launches"][name],
-            "launches_train": training["launches"][name],
+            "launches_train": training["launches"][name], "launches_sky": sky["launches"][name],
             "shapes": rows[name], **grids[name],
         })
     measures = ("prefill_ms", "decode_step_ms", "decode_step_least_ms", "decode_tok_s", "build_peak_gib",
@@ -2111,8 +2278,12 @@ def main() -> None:
                 "prefill_launches", "launches")
     train_measures = ("step_ms", "tok_s", "peak_gib", "first_loss", "last_loss", "xla_ref_rel", "trace",
                       "checkpoint")
+    sky_measures = ("deployment", "wall_s", "write_ms", "write_MBps", "read_MBps", "aggregate_read_MBps",
+                    "latency_p50_ms", "latency_max_ms", "pairs", "replay", "busy_share", "peak_gib", "store",
+                    "hit_rates", "first_read_hit_rates")
     print(json.dumps({"kernels": kernels, "seamless": {k: seamless[k] for k in measures},
-                      "training": {k: training[k] for k in train_measures}}), flush=True)
+                      "training": {k: training[k] for k in train_measures},
+                      "sky": {"card": card, **{k: sky[k] for k in sky_measures}}}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -1,18 +1,21 @@
 """Lock-free versioned blob storage: the storage core that blob-mode serving
-stands on, copied from :mod:`repro.core` (only the package name in imports
-differs; ``tests/test_torch_blob_kv.py`` holds each copy to its source).
+and the sky application stand on, copied from :mod:`repro.core` (only the
+package name in imports differs; ``tests/test_torch_blob_kv.py`` holds each
+copy to its source).
 
 Public API: :class:`Cluster` (shared plane: version manager, metadata DHT,
 data providers, replica balancer, shared cache tier) → :class:`Session`
 (per-client state) → :class:`BlobHandle` (fine-grain ALLOC/READ/WRITE ops,
-:class:`Snapshot` pinning, :class:`VersionWatch` subscriptions), and the
-cluster-wide :class:`PageDirectory` of published prefix pages.
+:class:`Snapshot` pinning, :class:`VersionWatch` subscriptions), the
+cluster-wide :class:`PageDirectory` of published prefix pages,
+:func:`flatten` (a version's page map as arrays) and :class:`BlobStore`,
+the deprecated single-object facade.
 
-Not copied, being on no serving path: ``federation`` and ``faults`` (several
-nodes on one substrate, the chaos harness), ``blob`` (the deprecated
-``BlobStore`` facade) and ``flat_view``.
+Not copied: ``federation`` and ``faults`` (several nodes on one substrate,
+the chaos harness), whose chaos test hangs in the JAX package.
 """
 
+from repro_torch.core.blob import BlobStore
 from repro_torch.core.cluster import (
     BlobHandle,
     Cluster,
@@ -30,6 +33,7 @@ from repro_torch.core.dht import (
     TrafficStats,
     page_checksum,
 )
+from repro_torch.core.flat_view import FlatView, ZERO_PAGE, flatten
 from repro_torch.core.page_cache import CacheKey, FetchPlan, PageCache
 from repro_torch.core.page_directory import PageAddress, PageDirectory
 from repro_torch.core.prefetch import PrefetchConfig, StridePrefetcher, WatchWarmer
@@ -57,6 +61,7 @@ from repro_torch.core.version_manager import (
 
 __all__ = [
     "BlobHandle",
+    "BlobStore",
     "Cluster",
     "DEFAULT_CACHE_BYTES",
     "DEFAULT_SHARED_CACHE_BYTES",
@@ -79,6 +84,9 @@ __all__ = [
     "ProviderFailed",
     "TrafficStats",
     "page_checksum",
+    "FlatView",
+    "ZERO_PAGE",
+    "flatten",
     "DataProvider",
     "ProviderManager",
     "BalancerConfig",

@@ -271,7 +271,8 @@ def test_blob_pool_exhaustion_requeues_and_drains(setup, pallas_interpret):
 COPIED = ["analysis/lock_order.py", "analysis/lockwatch.py", "core/segment_tree.py",
           "core/version_manager.py", "core/dht.py", "core/provider.py", "core/page_cache.py",
           "core/page_directory.py", "core/prefetch.py", "core/repair.py",
-          "core/replica_balancer.py", "core/cluster.py", "serving/blob_kv.py", "data/pipeline.py"]
+          "core/replica_balancer.py", "core/cluster.py", "serving/blob_kv.py", "data/pipeline.py",
+          "core/flat_view.py", "core/blob.py", "data/sky.py", "configs/paper_sky.py"]
 
 
 @pytest.mark.parametrize("module", COPIED)

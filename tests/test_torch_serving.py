@@ -222,7 +222,9 @@ def test_default_device_entry_points_raise_without_a_card(setup, monkeypatch):
 def test_blob_mode_not_ported(setup):
     """Blob mode is ported (``tests/test_torch_blob_kv.py``): a ``kv_client``
     is taken, its page geometry checked against the model's. What the port
-    has not copied of the storage core is absent from ``repro_torch.core``."""
+    has not copied of the storage core (``federation``, ``faults``) is
+    absent from ``repro_torch.core``; the ``BlobStore`` facade and
+    ``flat_view``, copied for the sky application, are there."""
     _, _, tcfg, tparams = setup
     from types import SimpleNamespace
 
@@ -234,8 +236,10 @@ def test_blob_mode_not_ported(setup):
     right = SimpleNamespace(store=SimpleNamespace(page_tokens=tcfg.kv_page_tokens, n_pages=16))
     engine = ServingEngine(tcfg, tparams, device="cpu", kv_client=right)
     assert engine.alloc is None and engine.pool_k.shape[1] == 16
-    for name in ("Federation", "FaultInjector", "BlobStore", "FlatView"):
+    for name in ("Federation", "GcEpochCoordinator", "FaultInjector", "FaultSchedule", "FaultEvent"):
         assert not hasattr(repro_torch.core, name)
+    for name in ("BlobStore", "FlatView", "ZERO_PAGE", "flatten"):
+        assert hasattr(repro_torch.core, name)
 
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
