@@ -125,10 +125,27 @@ JAX package), and it:
     pair's H2D ms and GB/s and stream ms, one pair's detection replayed
     alone beside its byte bound, the device's busy share (at most), peak
     memory and the store's counters;
-14. prints a JSON line with each kernel's launches, error, times and grid at
+14. runs the same application over the paper's deployment of access nodes
+    (``federated_sky_phase``): a ``Federation`` of 4 nodes on one substrate
+    at the same deployment, pages replicated twice, leases of 50 ms, the
+    telescope on node 0 and the 8 detectors round-robin on nodes 0-3, 5
+    epochs; when epoch 3 is published node 3 is killed, node 1 partitioned
+    from the GC coordinator, one federated GC pass waits out their leases
+    and a probe fences node 1; when epoch 4 is published both recover, the
+    detectors on them having retried their pins meanwhile; fails unless the
+    hits equal numpy's, the supernovae are step 13's, a lease was waited
+    out, a fence landed, pages were freed, every node is up, the kept frame
+    reads back from another node as the detectors read it, no collected
+    version stays cached after a final pass, and neither kernel ran; every
+    thread is joined against a deadline, and a wait past it dumps every
+    stack and fails; prints the telescope's MB/s per epoch, each node's
+    detectors' read MB/s, the GC pass's ms and stall, H2D ms a pair, the
+    card's busy share (at most), peak memory and the host's resident
+    memory;
+15. prints a JSON line with each kernel's launches, error, times and grid at
     the main-path shape (and its times at the danube, mixtral, zamba2,
-    mistral-large and seamless shapes, and its launches in steps 5-13) and
-    the measures of steps 11-13, and, as the last line, ``{"ok": true,
+    mistral-large and seamless shapes, and its launches in steps 5-14) and
+    the measures of steps 11-14, and, as the last line, ``{"ok": true,
     "device": {...}}``.
 
 Any failure exits nonzero before the last line is printed.
@@ -137,8 +154,12 @@ Any failure exits nonzero before the last line is printed.
 from __future__ import annotations
 
 import dataclasses
+import faulthandler
 import gc
+import hashlib
 import json
+import os
+import resource
 import statistics
 import subprocess
 import sys
@@ -2004,6 +2025,365 @@ def sky_phase(dev, card, kernels, smoke: bool = False) -> dict:
             "truth": res["truth"], "found": res["found"]}
 
 
+# ------------------------------ step 14: the sky over a federation ------------------------------
+FED_NODES = 4  # access nodes over one substrate, as benchmarks/concurrent_throughput.py's degraded-node
+FED_EPOCHS = 5  # four frame pairs
+FED_REPLICATION = 2
+FED_LEASE_S = 0.05
+FED_DEAD_AFTER = 10**6  # downed nodes are waited out, never declared dead
+FED_KILLED, FED_PARTITIONED = 3, 1
+FED_FAULT_EPOCH, FED_RECOVER_EPOCH = 3, 4
+FED_RETRY_S = 60.0  # a detector whose node is down retries its pin and reads this long (the benchmark's loop)
+FED_WAIT_S = 300.0  # every wait and every join of the step ends by this deadline
+
+
+def dump_and_fail(msg: str) -> None:
+    """Every thread's stack to stderr, then exit 1 at once: a wait that
+    outlasts its deadline is a hang, the stacks say where, and the hung
+    threads may hold locks that an orderly exit (closing the federation,
+    joining its pools) would wait on for ever."""
+    faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+    print(f"chip_smoke: FAILED: {msg} (every thread's stack above)", file=sys.stderr, flush=True)
+    sys.stdout.flush()
+    os._exit(1)
+
+
+def join_within(threads, seconds: float, what: str) -> None:
+    end = time.perf_counter() + seconds
+    for t in threads:
+        t.join(max(0.0, end - time.perf_counter()))
+    alive = [t.name for t in threads if t.is_alive()]
+    if alive:
+        dump_and_fail(f"{what}: {alive} still running after {seconds:.0f} s")
+
+
+def host_memory() -> dict:
+    """This process's resident memory now and at its peak so far, in GiB
+    (Linux: ``/proc/self/status`` and ``getrusage``, both in KiB)."""
+    with open("/proc/self/status") as f:
+        rss = next(int(line.split()[1]) for line in f if line.startswith("VmRSS:"))
+    return {"rss_gib": rss / 2**20, "peak_rss_gib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20}
+
+
+def read_pair(handle, v0: int, v1: int, segs):
+    """Pin both frames, read the windows of each, release both pins."""
+    before = handle.at(v0)
+    try:
+        after = handle.at(v1)
+    except BaseException:
+        before.release()
+        raise
+    try:
+        return before.readv(segs), after.readv(segs)
+    finally:
+        before.release()
+        after.release()
+
+
+def federated_sky_phase(dev, card, kernels, dep) -> dict:
+    """Step 14: the paper's application over the paper's deployment of
+    access nodes (§VI): a ``Federation`` of 4 nodes on one substrate (pages
+    replicated twice, leases of 50 ms, downed nodes waited out), the
+    telescope's session on node 0 (the home node, which runs GC), the
+    detector sessions round-robin on nodes 0-3, each with its own
+    ``DeviceDetector``. Five epochs. When epoch 3 is published and every
+    detector is done with pair (2, 3), node 3 is killed, node 1 partitioned
+    from the coordinator, one federated GC pass keeps every frame a detector
+    has not finished with, and a cache-less read probes node 1 so its fence
+    lands; when epoch 4 is published and each detector on a downed node has
+    been refused at least once, both nodes recover. A detector whose node is
+    down retries its pins and reads for up to ``FED_RETRY_S``.
+
+    Fails unless every detector's hits equal numpy's on the same bytes,
+    region by region; the supernovae found are step 13's rule; the GC pass
+    stalled on a lease, a fence landed and pages were freed; every node is
+    up at the end; every frame the pass kept reads back, through a fresh
+    cache-less session on another node, as the detectors read it; after a
+    final pass no node's shared tier holds a collected version; and neither
+    kernel ran. Every thread is joined against a deadline."""
+    from repro_torch.core import Federation, HealthConfig, ProviderFailed
+    from repro_torch.data.detect import DeviceDetector
+    from repro_torch.data.sky import SkyLayout, SkySimulator, detect_transients
+    from repro_torch.launch.supernovae import MAX_WORKERS, SEED, SN_RATE, THRESHOLD, WATCH_TIMEOUT_S, busy_ms
+
+    layout = SkyLayout(n_regions=dep.n_regions, region_px=dep.region_px, page_size=dep.page_size)
+    n, px, n_det = dep.n_regions, dep.region_px, dep.n_detectors
+    img_bytes = px * px * 4
+    windows = [(r * layout.region_bytes, img_bytes + layout.page_size) for r in range(n)]
+    shares = [list(range(k, n, n_det)) for k in range(n_det)]
+    node_of = [k % FED_NODES for k in range(n_det)]
+    downed = [k for k in range(n_det) if node_of[k] in (FED_KILLED, FED_PARTITIONED)]
+
+    progress = threading.Condition()
+    finished = [1] * n_det  # the later epoch of each detector's last finished pair
+    refused = [0] * n_det  # pins or reads refused because the detector's node was down
+    pairs, failures, mismatches, checked = [], [], [], []
+    digests: dict = {}  # (frame epoch, region) -> digest of the window a detector read, and who read it
+    detections: dict = {}
+
+    def wait_for(pred, what: str) -> None:
+        with progress:
+            ok = progress.wait_for(lambda: failures or pred(), timeout=FED_WAIT_S)
+        if failures:
+            raise failures[0]
+        if not ok:
+            dump_and_fail(f"federated sky: {what} not within {FED_WAIT_S:.0f} s")
+
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    fed = Federation(n_nodes=FED_NODES, n_data_providers=dep.n_data_providers,
+                     n_metadata_providers=dep.n_metadata_providers, page_replication=FED_REPLICATION,
+                     max_workers=MAX_WORKERS, shared_cache_bytes=dep.shared_cache_bytes,
+                     lease_seconds=FED_LEASE_S, health=HealthConfig(dead_after=FED_DEAD_AFTER))
+    try:
+        stall_s = [0.0]
+        wait_out = fed._wait_out_lease
+
+        def timed_wait_out(i, epoch):  # the GC pass's time waiting out leases
+            t0 = time.perf_counter()
+            try:
+                return wait_out(i, epoch)
+            finally:
+                stall_s[0] += time.perf_counter() - t0
+
+        fed._wait_out_lease = timed_wait_out
+        sim = SkySimulator(fed.node(0).session(max_inflight_writes=8), layout, seed=SEED, sn_rate=SN_RATE)
+        blob = sim.blob_id
+        sessions = [fed.node(node_of[k]).session(cache_bytes=0) for k in range(n_det)]
+        detectors = [DeviceDetector(len(shares[k]), px, dev) for k in range(n_det)]
+        print(f"federated sky: {FED_NODES} nodes, {n} regions of {px}x{px} f32, {layout.page_size >> 10} KiB "
+              f"pages x{FED_REPLICATION}, {dep.n_data_providers} + {dep.n_metadata_providers} providers, lease "
+              f"{FED_LEASE_S} s; telescope on node 0, {n_det} detectors on nodes {node_of}", flush=True)
+
+        def on_pair(k, epoch, regions, before, after, hits) -> None:
+            for f, frame in ((epoch - 1, before), (epoch, after)):
+                for r, w in zip(regions, frame):
+                    d = hashlib.blake2b(w, digest_size=16).digest()
+                    with progress:
+                        seen = digests.setdefault((f, r), (d, k))
+                    if seen[0] != d:
+                        mismatches.append(f"frame {f} region {r}: detector {k} read other bytes than detector "
+                                          f"{seen[1]}")
+            for r, b, a, got in zip(regions, before, after, hits):
+                img_b = b[:img_bytes].view(np.float32).reshape(px, px)
+                img_a = a[:img_bytes].view(np.float32).reshape(px, px)
+                want = detect_transients(img_b, img_a, threshold=THRESHOLD)
+                with progress:
+                    checked.append((k, epoch, r))
+                    if got != want:
+                        mismatches.append(f"detector {k} pair {epoch} region {r}: {got[:3]} != numpy {want[:3]}")
+
+        def detector(k: int) -> None:
+            try:
+                handle = sessions[k].open(blob)
+                watch = handle.watch(start_version=0)
+                segs = [windows[r] for r in shares[k]]
+                for epoch in range(2, FED_EPOCHS + 1):
+                    target = epoch * n
+                    while True:
+                        v = watch.next(timeout=WATCH_TIMEOUT_S)
+                        if v is None:
+                            raise RuntimeError(f"detector {k}: the telescope stalled before v{target}")
+                        if v >= target:
+                            break
+                    woke = time.perf_counter()
+                    give_up = woke + FED_RETRY_S
+                    while True:
+                        t0 = time.perf_counter()
+                        try:
+                            before_w, after_w = read_pair(handle, target - n, target, segs)
+                            break
+                        except ProviderFailed as e:  # the node is down or cut off from the coordinator
+                            with progress:
+                                refused[k] += 1
+                                progress.notify_all()
+                            if time.perf_counter() > give_up:
+                                raise RuntimeError(f"detector {k}: node {node_of[k]} not back within "
+                                                   f"{FED_RETRY_S:.0f} s") from e
+                            time.sleep(0.005)
+                    read = time.perf_counter()
+                    hits = detectors[k].detect(before_w, after_w, THRESHOLD)
+                    on_pair(k, epoch, shares[k], before_w, after_w, hits)
+                    with progress:
+                        pairs.append(dict(detector=k, node=node_of[k], epoch=epoch, wait_s=t0 - woke,
+                                          read_s=read - t0, bytes=2 * sum(size for _, size in segs)))
+                        for r, h in zip(shares[k], hits):
+                            if h:
+                                detections.setdefault(epoch, []).append((r, h))
+                        finished[k] = epoch
+                        progress.notify_all()
+            except Exception as e:  # raised in the telescope's thread
+                with progress:
+                    failures.append(e)
+                    progress.notify_all()
+
+        def touch(i: int) -> None:
+            """One cache-less page read through node ``i``: its lease guard
+            renews (or fences and rejoins) it, as a detector's read would."""
+            probe = fed.node(i).session(cache_bytes=0)
+            try:
+                probe.open(blob).read(0, layout.page_size)
+            finally:
+                probe.close()
+
+        on_card = dev.type == "cuda"
+        if on_card:
+            ref = torch.cuda.Event(enable_timing=True)
+            ref.record()
+        t_start = time.perf_counter()
+        threads = [threading.Thread(target=detector, args=(k,), name=f"detector-{k}", daemon=True)
+                   for k in range(n_det)]
+        for t in threads:
+            t.start()
+        writes, gc_pass = [], {}
+        for epoch in range(1, FED_EPOCHS + 1):
+            t0 = time.perf_counter()
+            v = sim.observe_epoch_stream()
+            t1 = time.perf_counter()
+            writes.append(dict(epoch=epoch, version=v, write_s=t1 - t0, bytes=n * layout.region_bytes))
+            print(f"  epoch {epoch}: published v{v} in {(t1 - t0) * 1e3:.1f} ms "
+                  f"({n * layout.region_bytes / (t1 - t0) / 1e6:.1f} MB/s at replication {FED_REPLICATION})",
+                  flush=True)
+            if epoch == FED_FAULT_EPOCH:
+                wait_for(lambda: min(finished) >= epoch, f"every detector done with pair ({epoch - 1}, {epoch})")
+                # both nodes hold live leases when they go down, as mid-pair nodes would
+                touch(FED_PARTITIONED)
+                touch(FED_KILLED)
+                fed.apply_node_fault(FED_KILLED, "kill")
+                fed.apply_node_fault(FED_PARTITIONED, "partition")
+                keep = [e * n for e in range(min(finished), epoch + 1)]
+                stalls0, fences0 = fed.stats.epoch_stalls, fed.stats.lease_fences
+                g0 = time.perf_counter()
+                nodes_freed, pages_freed = fed.gc(blob, keep_versions=keep)
+                gc_ms = (time.perf_counter() - g0) * 1e3
+                touch(FED_PARTITIONED)  # past its waited-out lease: the fence lands, then it reads through
+                gc_pass = dict(keep=keep, gc_ms=gc_ms, stall_ms=stall_s[0] * 1e3, nodes_freed=nodes_freed,
+                               pages_freed=pages_freed, epoch_stalls=fed.stats.epoch_stalls - stalls0,
+                               lease_fences=fed.stats.lease_fences - fences0,
+                               fenced=fed.node_fenced(FED_PARTITIONED))
+                print(f"  node {FED_KILLED} killed, node {FED_PARTITIONED} partitioned; federated GC keeping "
+                      f"{keep}: {gc_ms:.1f} ms, {gc_pass['stall_ms']:.1f} ms of it waiting out leases "
+                      f"({gc_pass['epoch_stalls']} stalls), freed {nodes_freed} nodes and {pages_freed} pages; "
+                      f"probe of node {FED_PARTITIONED}: {gc_pass['lease_fences']} fence", flush=True)
+            if epoch == FED_RECOVER_EPOCH:
+                wait_for(lambda: all(refused[k] >= 1 for k in downed),
+                         f"a refusal for every detector on nodes {FED_KILLED} and {FED_PARTITIONED}")
+                fed.apply_node_fault(FED_KILLED, "recover")
+                fed.apply_node_fault(FED_PARTITIONED, "recover")
+                print(f"  nodes {FED_KILLED} and {FED_PARTITIONED} recovered; refusals so far {refused}", flush=True)
+        join_within(threads, FED_WAIT_S, "federated sky detectors")
+        if failures:
+            raise failures[0]
+        wall_s = time.perf_counter() - t_start
+        spans = []
+        if on_card:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            torch.cuda.synchronize()
+            for k, det in enumerate(detectors):
+                for epoch, (e0, e1, e2) in enumerate(det.spans, start=2):
+                    spans.append(dict(detector=k, epoch=epoch, start_ms=ref.elapsed_time(e0),
+                                      copied_ms=ref.elapsed_time(e1), done_ms=ref.elapsed_time(e2)))
+            span_ms = ref.elapsed_time(end)
+        peak = torch.cuda.max_memory_allocated()
+        launches = {"flash_attention": kernels[0].launches, "paged_attention": kernels[1].launches}
+        modes = [fed.node_mode(i) for i in range(FED_NODES)]
+
+        # every frame the GC kept, read back through a fresh cache-less session on another node
+        readback: list = []
+
+        def read_back(k: int) -> None:
+            try:
+                other = fed.node((node_of[k] + 1) % FED_NODES).session(cache_bytes=0)
+                try:
+                    handle = other.open(blob)
+                    for v in gc_pass["keep"]:
+                        for r in shares[k]:
+                            off, size = windows[r]
+                            d = hashlib.blake2b(handle.read(off, size, version=v).data,
+                                                digest_size=16).digest()
+                            with progress:
+                                readback.append((v // n, r, d == digests[(v // n, r)][0]))
+                finally:
+                    other.close()
+            except Exception as e:
+                with progress:
+                    failures.append(e)
+
+        rb = [threading.Thread(target=read_back, args=(k,), name=f"read-back-{k}", daemon=True)
+              for k in range(n_det)]
+        r0 = time.perf_counter()
+        for t in rb:
+            t.start()
+        join_within(rb, FED_WAIT_S, "federated sky read-back")
+        readback_s = time.perf_counter() - r0
+        if failures:
+            raise failures[0]
+        latest = fed.version_manager.latest_published(blob)
+        fed.gc(blob, keep_versions=[latest])
+        stale = {i: [v for v in fed.node(i).shared_cache.cached_versions(blob) if v != 0 and v < latest]
+                 for i in range(FED_NODES)}
+        host = host_memory()
+        stats = dict(epoch_stalls=fed.stats.epoch_stalls, lease_fences=fed.stats.lease_fences,
+                     storage_bytes=fed.node(0).storage_bytes())
+        truth = [(sn.region, sn.x, sn.y, sn.ignite_epoch) for sn in sim.supernovae]
+    finally:
+        fed.close()
+
+    check(sorted({d.tensor_device.type for d in detectors}) == [SKY_DEVICE_TYPE],
+          f"detector tensors on {sorted({d.tensor_device.type for d in detectors})}")
+    check(not on_card or len(spans) == n_det * (FED_EPOCHS - 1), "a frame pair recorded no device span")
+    check(len(checked) == n * (FED_EPOCHS - 1),
+          f"{len(checked)} region pairs checked against numpy, expected {n * (FED_EPOCHS - 1)}")
+    check(not mismatches, f"federated sky: {mismatches[:4]}")
+    want = {(ign + 1, r, x, y) for r, x, y, ign in truth if ign < FED_EPOCHS}
+    got = {(e, r, x, y) for e, lst in detections.items() for r, hs in lst for x, y, _ in hs}
+    check(got == want and want, f"federated detections {sorted(got)} != ground truth {sorted(want)}")
+    check(gc_pass["epoch_stalls"] >= 1 and gc_pass["lease_fences"] >= 1 and gc_pass["fenced"],
+          f"the GC pass waited out no lease, or the probe did not fence node {FED_PARTITIONED}: {gc_pass}")
+    check(gc_pass["pages_freed"] > 0, f"the federated GC pass freed no pages: {gc_pass}")
+    check(all(m == "up" for m in modes), f"nodes not up at the end: {modes}")
+    check(len(readback) == len(gc_pass["keep"]) * n and all(ok for *_, ok in readback),
+          f"kept frames read back from another node differ: {[x for x in readback if not x[2]][:4]}")
+    check(not any(stale.values()), f"collected versions still cached after the final pass: {stale}")
+    check(all(c == 0 for c in launches.values()), f"a CUDA kernel ran in the federated sky: {launches}")
+
+    node_read = {}
+    for i in range(FED_NODES):
+        mine = [p for p in pairs if p["node"] == i]
+        read_s = sum(p["read_s"] for p in mine)
+        node_read[i] = dict(read_MBps=sum(p["bytes"] for p in mine) / read_s / 1e6,
+                            retry_wait_s=sum(p["wait_s"] for p in mine),
+                            pair_MBps={p["epoch"]: p["bytes"] / p["read_s"] / 1e6
+                                       for p in sorted(mine, key=lambda p: p["epoch"])})
+    write_MBps = [w["bytes"] / w["write_s"] / 1e6 for w in writes]
+    pair_times = sky_pair_times({"deployment": {"n_regions": n, "region_px": px, "epochs": FED_EPOCHS},
+                                 "device_spans": spans})
+    busy = busy_ms([(s["start_ms"], s["done_ms"]) for s in spans]) / span_ms if on_card else None
+    print(f"federated sky on {card}: {FED_EPOCHS} epochs in {wall_s:.2f} s", flush=True)
+    print(f"  telescope write MB/s per epoch at replication {FED_REPLICATION}: {[round(x, 1) for x in write_MBps]}",
+          flush=True)
+    for i, r in node_read.items():
+        print(f"  node {i}'s detectors: read {r['read_MBps']:.1f} MB/s (pairs: "
+              f"{ {e: round(x, 1) for e, x in r['pair_MBps'].items()} }), {r['retry_wait_s'] * 1e3:.1f} ms "
+              f"waiting for their node", flush=True)
+    print(f"  GC pass {gc_pass['gc_ms']:.1f} ms, stall {gc_pass['stall_ms']:.1f} ms; federation: "
+          f"{stats['epoch_stalls']} epoch stalls, {stats['lease_fences']} lease fences; refusals {refused}",
+          flush=True)
+    for epoch, p in pair_times.items():
+        times = "not measured" if p["h2d_ms"] is None else f"H2D {p['h2d_ms']:.2f} ms ({p['h2d_GBps']:.2f} GB/s)"
+        print(f"  frame pair ({epoch - 1}, {epoch}): {times}, summed over {n_det} detectors' streams", flush=True)
+    print(f"  kept frames read back from other nodes in {readback_s:.2f} s; device busy at most "
+          f"{'not measured' if busy is None else f'{busy:.2%}'} of the phase on {card}; peak memory "
+          f"{peak / 2**30:.2f} GiB; host resident {host['rss_gib']:.2f} GiB (peak {host['peak_rss_gib']:.2f}); "
+          f"found {len(got)} of {len(truth)} supernovae; kernel launches {launches}", flush=True)
+    return {"launches": launches, "wall_s": wall_s, "write_MBps": write_MBps, "node_read": node_read,
+            "gc": gc_pass, "stats": stats, "refused": refused, "pairs": pair_times, "busy_share": busy,
+            "peak_gib": peak / 2**30, "host": host, "readback_s": readback_s, "truth": truth,
+            "found": sorted({(r, x, y) for _, r, x, y in got})}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -2253,8 +2633,16 @@ def main() -> None:
     # 13. the sky application at the paper's deployment
     print("sky:", flush=True)
     sky = sky_phase(dev, card, kernels)
+    gc.collect()
 
-    # 14. results
+    # 14. the sky application over a federation of 4 access nodes, under node faults
+    print("federated sky:", flush=True)
+    from repro_torch.launch.supernovae import Deployment
+
+    fed_sky = federated_sky_phase(dev, card, kernels, Deployment.paper())
+    gc.collect()
+
+    # 15. results
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:79"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -2271,6 +2659,7 @@ def main() -> None:
             "launches_mamba2": mamba["launches"][name], "launches_zamba2": zamba["launches"][name],
             "launches_mistral": mistral["launches"][name], "launches_seamless": seamless["launches"][name],
             "launches_train": training["launches"][name], "launches_sky": sky["launches"][name],
+            "launches_federated_sky": fed_sky["launches"][name],
             "shapes": rows[name], **grids[name],
         })
     measures = ("prefill_ms", "decode_step_ms", "decode_step_least_ms", "decode_tok_s", "build_peak_gib",
@@ -2281,9 +2670,12 @@ def main() -> None:
     sky_measures = ("deployment", "wall_s", "write_ms", "write_MBps", "read_MBps", "aggregate_read_MBps",
                     "latency_p50_ms", "latency_max_ms", "pairs", "replay", "busy_share", "peak_gib", "store",
                     "hit_rates", "first_read_hit_rates")
+    fed_measures = ("wall_s", "write_MBps", "node_read", "gc", "stats", "refused", "pairs", "busy_share",
+                    "peak_gib", "host", "readback_s")
     print(json.dumps({"kernels": kernels, "seamless": {k: seamless[k] for k in measures},
                       "training": {k: training[k] for k in train_measures},
-                      "sky": {"card": card, **{k: sky[k] for k in sky_measures}}}), flush=True)
+                      "sky": {"card": card, **{k: sky[k] for k in sky_measures}},
+                      "federated_sky": {"card": card, **{k: fed_sky[k] for k in fed_measures}}}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

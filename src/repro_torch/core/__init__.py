@@ -8,11 +8,19 @@ data providers, replica balancer, shared cache tier) → :class:`Session`
 (per-client state) → :class:`BlobHandle` (fine-grain ALLOC/READ/WRITE ops,
 :class:`Snapshot` pinning, :class:`VersionWatch` subscriptions), the
 cluster-wide :class:`PageDirectory` of published prefix pages,
-:func:`flatten` (a version's page map as arrays) and :class:`BlobStore`,
-the deprecated single-object facade.
+:func:`flatten` (a version's page map as arrays), :class:`BlobStore`, the
+deprecated single-object facade, :class:`Federation` (several access nodes
+on one substrate under the GC epoch/lease protocol of
+:class:`GcEpochCoordinator`) and the chaos harness (:class:`FaultSchedule`,
+:class:`FaultEvent`, :class:`FaultInjector`).
 
-Not copied: ``federation`` and ``faults`` (several nodes on one substrate,
-the chaos harness), whose chaos test hangs in the JAX package.
+Two copies differ from their sources, each to repair a fault of the
+reference: in ``federation`` a rejoining node's pin resync that arrives
+while a GC sweep is open is installed as the sweep closes instead of
+waiting for it (a ``recover`` event that the sweep's own RPCs cross
+deadlocked the sweep), and in ``cluster`` a GC pass always keeps the
+newest published version (one whose keep list predated a concurrent
+publish collected the tree every later write links into).
 """
 
 from repro_torch.core.blob import BlobStore
@@ -33,6 +41,8 @@ from repro_torch.core.dht import (
     TrafficStats,
     page_checksum,
 )
+from repro_torch.core.faults import FaultEvent, FaultInjector, FaultSchedule
+from repro_torch.core.federation import Federation, GcEpochCoordinator
 from repro_torch.core.flat_view import FlatView, ZERO_PAGE, flatten
 from repro_torch.core.page_cache import CacheKey, FetchPlan, PageCache
 from repro_torch.core.page_directory import PageAddress, PageDirectory
@@ -70,6 +80,11 @@ __all__ = [
     "Session",
     "Snapshot",
     "VersionWatch",
+    "FaultEvent",
+    "FaultInjector",
+    "FaultSchedule",
+    "Federation",
+    "GcEpochCoordinator",
     "HealthConfig",
     "RepairService",
     "CacheKey",

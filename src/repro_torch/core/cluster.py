@@ -1,4 +1,5 @@
-# Copy of src/repro/core/cluster.py (the JAX package's storage core); only the package name in imports differs.
+# Copy of src/repro/core/cluster.py (the JAX package's storage core); only the package name in imports
+# differs, apart from Cluster._gc_locked, which always keeps the newest published version.
 """Cluster / Session / BlobHandle: the layered client API (paper §III).
 
 The paper's architecture separates the *shared infrastructure* — version
@@ -661,7 +662,11 @@ class Cluster:
         vm = self.version_manager
         total_pages, _ = vm.blob_info(blob_id)
         latest = vm.latest_published(blob_id)
-        keep = sorted(v for v in keep_versions if v != ZERO_VERSION)
+        # the newest published version is kept whatever the caller listed:
+        # every later write's border links point into its tree, so a caller
+        # that chose its keep list before a concurrent publish would
+        # otherwise have the pass corrupt every version written after it
+        keep = sorted(v for v in keep_versions | {latest} if v != ZERO_VERSION)
         aborted = vm.aborted_view(blob_id)
         reachable_nodes: Set[NodeKey] = set()
         reachable_pages: Set[PageRef] = set()

@@ -221,10 +221,11 @@ def test_default_device_entry_points_raise_without_a_card(setup, monkeypatch):
 
 def test_blob_mode_not_ported(setup):
     """Blob mode is ported (``tests/test_torch_blob_kv.py``): a ``kv_client``
-    is taken, its page geometry checked against the model's. What the port
-    has not copied of the storage core (``federation``, ``faults``) is
-    absent from ``repro_torch.core``; the ``BlobStore`` facade and
-    ``flat_view``, copied for the sky application, are there."""
+    is taken, its page geometry checked against the model's. The whole
+    storage core is now in ``repro_torch.core``: the ``BlobStore`` facade
+    and ``flat_view``, copied for the sky application, and the federation
+    and chaos harness (``tests/test_torch_federation.py``,
+    ``tests/test_torch_faults.py``)."""
     _, _, tcfg, tparams = setup
     from types import SimpleNamespace
 
@@ -237,7 +238,7 @@ def test_blob_mode_not_ported(setup):
     engine = ServingEngine(tcfg, tparams, device="cpu", kv_client=right)
     assert engine.alloc is None and engine.pool_k.shape[1] == 16
     for name in ("Federation", "GcEpochCoordinator", "FaultInjector", "FaultSchedule", "FaultEvent"):
-        assert not hasattr(repro_torch.core, name)
+        assert hasattr(repro_torch.core, name) and name in repro_torch.core.__all__
     for name in ("BlobStore", "FlatView", "ZERO_PAGE", "flatten"):
         assert hasattr(repro_torch.core, name)
 
