@@ -142,10 +142,29 @@ JAX package), and it:
     detectors' read MB/s, the GC pass's ms and stall, H2D ms a pair, the
     card's busy share (at most), peak memory and the host's resident
     memory;
-15. prints a JSON line with each kernel's launches, error, times and grid at
+15. serves across ranks (``sharded_phase``): four spawned processes, a
+    ``(data 2, model 2)`` mesh, NCCL when the host has a card for each and
+    else gloo with all four on the one card (the kernels are built once,
+    in step 2; each rank and collective has a deadline). (a)
+    ``llama3_2-1b`` at full width and depth: 8 rows of 2048-token prompts,
+    one single-device prefill, its pools striped over the ranks, then 32
+    decode steps with ``axis_info`` fed the unsharded oracle's greedy
+    tokens (rank 0 decodes with the unsharded model first): logits
+    bit-equal across ranks and within ``SHARD_LOGITS_TOL`` of the oracle's,
+    greedy tokens the oracle's but at printed near-ties, each rank's paged
+    kernel on its stripe held to the plain version (rank 1's timed beside
+    its byte bound), 16 x 32 paged launches a rank; (b) ``mixtral-8x7b``
+    cut to 4 layers, experts over the model axis, 8 rows of 4160 tokens
+    prefilled with ``axis_info`` (tokens over the data axis), 32 decode
+    steps, held to the unsharded model where the router chose alike; (c)
+    ``mistral-large-123b`` cut to 2 layers with int8 pools and scales
+    striped, as (a). Prints each rank's median decode step, time and bytes
+    in the all-reduces a step, launches and peak memory;
+16. prints a JSON line with each kernel's launches, error, times and grid at
     the main-path shape (and its times at the danube, mixtral, zamba2,
-    mistral-large and seamless shapes, and its launches in steps 5-14) and
-    the measures of steps 11-14, and, as the last line, ``{"ok": true,
+    mistral-large and seamless shapes, and its launches in steps 5-14 and
+    in step 15's sharded decode steps, each rank's) and
+    the measures of steps 11-15, and, as the last line, ``{"ok": true,
     "device": {...}}``.
 
 Any failure exits nonzero before the last line is printed.
@@ -274,11 +293,12 @@ def paged_case(gen, *, B=8, H=32, K=8, D=64, T=64, R=32, P=512, lengths, window=
             torch.tensor(lengths, dtype=torch.int32, device=dev)), window
 
 
-def paged_work(args, window):
+def paged_work(args, window, page_offset: int = 0):
     """Bytes and flops the function needs for these inputs: the K and V rows
     of each valid token read once for every kv-head (the (P, T, K, D) layout
     lets a reader fetch only those rows), q and the tables read once, o/m/l
-    written once; 4 flops per (query head, valid token, dim)."""
+    written once; 4 flops per (query head, valid token, dim). A stripe of a
+    pool (``page_offset``) counts only its own pages' tokens."""
     q, pool_k, _, tables, page_pos, lengths = args
     B, H, D = q.shape
     P, T, K, _ = pool_k.shape
@@ -287,7 +307,7 @@ def paged_work(args, window):
     for b in range(B):
         lo = max(0, lengths[b] - window) if window else 0
         for pid, base in zip(tables[b], page_pos[b]):
-            if 0 <= pid < P:
+            if 0 <= pid - page_offset < P:
                 tokens += max(0, min(base + T, lengths[b]) - max(base, lo))
     nbytes = (q.numel() * q.element_size() + 2 * tokens * K * D * pool_k.element_size()
               + (tables.size + page_pos.size + lengths.size) * 4 + B * H * (D + 2) * 4)
@@ -2384,6 +2404,467 @@ def federated_sky_phase(dev, card, kernels, dep) -> dict:
             "found": sorted({(r, x, y) for _, r, x, y in got})}
 
 
+# ------------------------------ step 15: serving across ranks ------------------------------
+RANKS, RANKS_MODEL = 4, 2  # a (data 2, model 2) mesh: the JAX package's (4, 2) test mesh, halved
+SHARD_DEADLINE_S = 480.0  # every rank and every collective of step 15 ends by this deadline
+SHARD_MIXTRAL_LAYERS = 4  # of 32: four ranks' shards and the unsharded oracle share the card's 80 GB
+SHARD_MISTRAL_LAYERS = 2  # of 88: the same
+# every capacity is the layer's whole token count, as in the smoke configs: the sharded
+# MoE counts capacity over each data shard's tokens (the JAX package's rule), so with
+# drops the two runs would drop different assignments and compute different functions
+SHARD_MOE_CAPACITY = 4.0
+# sharded against unsharded logits, max |d| over max |oracle|: the ranks' partial
+# (o, l) are f32 sums merged in another order than the kernel's own splits, which
+# moves a bf16-rounded attention output by at most one bf16 step (2^-8 of it) where
+# it sits on a rounding boundary (and the EP MoE rounds each rank's partial output to
+# bf16 before the sum); through the bf16 layers such steps grow as in step 7's
+# kernel-vs-oracle comparison, by the same mechanism, so its bound LOGITS_TOL holds
+SHARD_LOGITS_TOL = LOGITS_TOL
+
+
+def scatter_pages(cache, multiple: int, seed: int = 0) -> dict:
+    """The same cache with its pages moved to a seeded permutation of the
+    pool (padded to ``multiple`` first) and the tables renumbered: the
+    function is unchanged, but a row's pages now lie on several ranks, as an
+    engine's allocator hands pages out of a free list. A single-device
+    prefill places each row's pages together, so in a stripe of whole rows
+    the split-K combine would only ever add exact zeros."""
+    from repro_torch.parallel import sharding as shd
+
+    kv = shd.pad_pages(cache, multiple)["kv"]
+    gen = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(kv["pool_k"].shape[1], generator=gen).to(kv["pool_k"].device)  # page p moves to perm[p]
+    out = dict(kv, tables=perm[kv["tables"].long()].to(kv["tables"].dtype))
+    for name in shd.POOL_LEAVES:
+        if name in kv:
+            out[name] = torch.empty_like(kv[name])
+            out[name][:, perm] = kv[name]
+    return dict(cache, kv=out)
+
+
+def _digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.detach().float().cpu().numpy().tobytes()).hexdigest()
+
+
+def _oracle_decode(model, params, cache, logits, cfg) -> tuple:
+    """The unsharded model's greedy decode from ``cache``: the tokens it
+    feeds (N_DECODE, B) and its logits (N_DECODE, B, V)."""
+    fed, out = [], []
+    for _ in range(N_DECODE):
+        nxt = logits[:, :cfg.vocab_size].argmax(-1)
+        logits, cache = model.decode_step(params, cache, nxt)
+        fed.append(nxt)
+        out.append(logits)
+    return torch.stack(fed), torch.stack(out)
+
+
+def _teacher_tokens(tokens, shape, dev):
+    """Rank 0's oracle tokens on every rank (one broadcast)."""
+    import torch.distributed as dist
+
+    t = tokens if tokens is not None else torch.zeros(shape, dtype=torch.long, device=dev)
+    dist.broadcast(t, src=0)
+    return t
+
+
+def _sharded_decode(model, params, cache, tokens, ai, dev, kernels) -> tuple:
+    """N_DECODE decode steps with ``axis_info`` fed ``tokens``, each timed on
+    the host clock (synchronised), every count at 0 first; returns (logits
+    (N, B, V), step seconds, launches, all-reduces, bytes all-reduced,
+    cache)."""
+    from repro_torch.parallel import collectives
+
+    torch.cuda.synchronize(dev)
+    for k in kernels:
+        k.launches = 0
+    collectives.stats.update(calls=0, bytes=0)
+    out, steps = [], []
+    for t in tokens:
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, t, axis_info=ai)
+        torch.cuda.synchronize(dev)
+        steps.append(time.perf_counter() - t0)
+        out.append(logits)
+    launches = {k.__name__.removesuffix("_cuda"): k.launches for k in kernels}
+    return torch.stack(out), steps, launches, collectives.stats["calls"], collectives.stats["bytes"], cache
+
+
+def _collective_ms(model, params, cache, tokens, ai, dev, steps: int = 3) -> float:
+    """Host time inside the all-reduces of a decode step, each synchronised
+    before and after (a replay on a copy of the cache, not the timed run)."""
+    import types
+
+    import torch.distributed as dist
+
+    from repro_torch.parallel import collectives
+
+    spent = [0.0]
+
+    def timed(t, op=dist.ReduceOp.SUM, group=None):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        dist.all_reduce(t, op=op, group=group)
+        torch.cuda.synchronize(dev)
+        spent[0] += time.perf_counter() - t0
+
+    collectives.dist = types.SimpleNamespace(all_reduce=timed, ReduceOp=dist.ReduceOp)
+    try:
+        cache = clone_cache(cache)
+        for t in tokens[:steps]:
+            model.decode_step(params, cache, t, axis_info=ai)
+    finally:
+        collectives.dist = dist
+    return spent[0] * 1e3 / steps
+
+
+def _logit_errs(got, want) -> torch.Tensor:
+    """(steps, rows) max |got - want| over the vocabulary, over each step's max |want|."""
+    return (got - want).abs().amax(-1) / want.abs().amax((-2, -1))[:, None]
+
+
+def _near_tie_misses(got, want) -> list:
+    """(step, row, sharded token, oracle token, oracle's top-2 gap over max
+    |logit|) wherever the greedy tokens differ."""
+    g, w = got.argmax(-1), want.argmax(-1)
+    top2 = want.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]) / want.abs().amax((-2, -1))[:, None]
+    return [(s, b, int(g[s, b]), int(w[s, b]), float(gap[s, b])) for s, b in (g != w).nonzero().tolist()]
+
+
+def _shard_kernel_check(model, params, cache, token, ai, dev, flush) -> dict:
+    """One more decode step on a copy of the cache with layer 0's paged call
+    held to the plain version on the same stripe and ``page_offset``
+    (step 3's tolerances); rank 1 then times the kernel and the plain
+    version on that call's inputs (the other ranks wait) against its byte
+    bound."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_plain
+
+    inner, seen = ops.paged_attention_cuda, []
+
+    def wrapped(q, pool_k, pool_v, tables, page_pos, lengths, *, window=None, page_offset=0):
+        got = inner(q, pool_k, pool_v, tables, page_pos, lengths, window=window, page_offset=page_offset)
+        if not seen:
+            args = (q, pool_k, pool_v, tables, page_pos, lengths)
+            seen.append((args, window, page_offset, got,
+                         paged_attention_plain(*args, window=window, page_offset=page_offset)))
+        return got
+
+    ops.paged_attention_cuda = wrapped
+    try:
+        model.decode_step(params, clone_cache(cache), token, axis_info=ai)
+    finally:
+        ops.paged_attention_cuda = inner
+    args, window, off, got, want = seen[0]
+    torch.cuda.synchronize(dev)
+    live = want[2].amax(-1) > 0  # rows with a valid token on this stripe
+    dead_ok = bool((got[0][~live] == 0).all() and (got[2][~live] == 0).all() and (got[1][~live] == -1e30).all())
+    err, scaled, stat_err = paged_errs(got, want, live) if live.any() else (0.0, 0.0, 0.0)
+    check(dead_ok and scaled <= TOL_F32["paged_attention"] and stat_err <= 1e-3,
+          f"rank {ai.mesh.rank}: the paged kernel on its stripe (page_offset {off}) disagrees with plain: "
+          f"{scaled:.3e}, {stat_err:.3e}, empty rows ok {dead_ok}")
+    res = {"page_offset": off, "pages_local": args[1].shape[0], "live_rows": int(live.sum()),
+           "max_abs_err": err, "scaled_err": scaled, "stat_err": stat_err}
+    if flush is not None:  # rank 1, in (a)
+        nbytes, flops = paged_work(args, window, off)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        res.update(ms=time_ms(lambda: inner(*args, window=window, page_offset=off), flush=flush),
+                   plain_ms=time_ms(lambda: paged_attention_plain(*args, window=window, page_offset=off),
+                                    iters=10, flush=flush),
+                   bound_ms=b_ms, bound_by=b_by, bytes=int(nbytes), flops=int(flops))
+    dist.barrier()
+    return res
+
+
+def _serve_sharded(cfg, name, ai, dev, kernels, flush) -> dict:
+    """(a) and (c): the replicated model on every rank, one single-device
+    prefill of 8 rows of PROMPT tokens, its pages scattered over the pool
+    (:func:`scatter_pages`) and the pools striped over the four ranks; rank
+    0 first decodes greedily with the unsharded model on the prefill's own
+    cache (the oracle), then every rank takes N_DECODE decode steps with
+    ``axis_info`` fed the oracle's tokens. Rank 0 holds the logits to the
+    oracle's."""
+    from repro_torch.models.lm import build_model
+    from repro_torch.parallel import sharding as shd
+
+    rank = ai.mesh.rank
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev, dtype=cfg.cdtype())
+    checksum = sum(float(t.double().sum()) for t in _leaves(params))
+    prompt = prompt_tokens(cfg, 8, PROMPT, dev)
+    for k in kernels:
+        k.launches = 0
+    logits, cache = model.prefill(params, prompt)
+    prefill_launches = {k.__name__.removesuffix("_cuda"): k.launches for k in kernels}
+    sharded = shd.shard_cache(scatter_pages(cache, ai.n_page_shards), cfg, ai)
+    oracle_tokens = oracle = None
+    if rank == 0:
+        oracle_tokens, oracle = _oracle_decode(model, params, cache, logits, cfg)
+    del cache
+    tokens = _teacher_tokens(oracle_tokens, (N_DECODE, 8), dev)
+    got, steps, launches, calls, nbytes, sharded = _sharded_decode(model, params, sharded, tokens, ai, dev, kernels)
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite sharded logits on rank {rank}")
+    n_attn = cfg.n_layers
+    check(launches["paged_attention"] == n_attn * N_DECODE and launches["flash_attention"] == 0,
+          f"{name}: rank {rank} launched {launches} in {N_DECODE} sharded decode steps")
+    res = {"checksum": checksum, "digests": [_digest(g) for g in got], "steps_ms": [s * 1e3 for s in steps],
+           "launches": launches, "prefill_launches": prefill_launches, "allreduces_per_step": calls / N_DECODE,
+           "allreduce_bytes_per_step": nbytes / N_DECODE,
+           "collective_ms_per_step": _collective_ms(model, params, sharded, tokens, ai, dev),
+           "pool_pages_local": sharded["kv"]["pool_k"].shape[1]}
+    res["kernel_check"] = _shard_kernel_check(model, params, sharded, tokens[0], ai, dev, flush)
+    if rank == 0:
+        errs = _logit_errs(got, oracle)
+        res.update(max_err=float(errs.max()), step_errs=errs.amax(-1).tolist(),
+                   misses=_near_tie_misses(got, oracle))
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return res
+
+
+def _recorded_routes(state):
+    """The recorded calls' router choices on the CPU; recording off, and the
+    first call's tensors let go (they are views of the expert weights)."""
+    state["on"], state["first"] = False, None
+    return [c.cpu() for c in state["calls"]]
+
+
+def _rows_prefill(model, params, prompt, cfg) -> tuple:
+    """The unsharded prefill one row at a time (a MoE's dispatch buffers
+    scale with the tokens of a call), its caches laid out as one batched
+    prefill lays them: row b's pages at b * R + p."""
+    outs = [model.prefill(params, prompt[b:b + 1]) for b in range(prompt.shape[0])]
+    logits = torch.cat([o[0] for o in outs])
+    kv = {n: torch.cat([o[1]["kv"][n] for o in outs], dim=1) for n in ("pool_k", "pool_v")}
+    R = outs[0][1]["kv"]["tables"].shape[-1]
+    kv["tables"] = torch.cat([o[1]["kv"]["tables"] + b * R for b, o in enumerate(outs)], dim=1)
+    kv["page_pos"] = torch.cat([o[1]["kv"]["page_pos"] for o in outs], dim=1)
+    lengths = torch.cat([o[1]["lengths"] for o in outs])
+    return logits, {"kv": kv, "lengths": lengths}
+
+
+def _moe_sharded(cfg, ai, dev, kernels) -> dict:
+    """(b): mixtral's experts over the model axis (each rank 4 of 8), tokens
+    over the data axis. The ranks draw the full weights one after another
+    (four at once would not fit), keep their experts and drop the rest;
+    rank 0 keeps the full weights for the oracle (the unsharded model: a
+    prefill of each row, then greedy decode), records its router choices,
+    and drops them before every rank prefills with ``axis_info`` (the
+    cache's pages scattered and striped) and decodes fed the oracle's
+    tokens."""
+    import torch.distributed as dist
+
+    from repro_torch.models.lm import build_model
+    from repro_torch.parallel import sharding as shd
+
+    rank = ai.mesh.rank
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg)
+    full = local = None
+    for r in range(ai.mesh.size):
+        if r == rank:
+            full = model.init(seed=0, device=dev, dtype=cfg.cdtype())
+            local = shd.shard_params(full, cfg, ai)
+            if rank != 0:
+                local = clone_cache(local)
+                full = None
+                torch.cuda.empty_cache()
+        dist.barrier()
+    ffn = local["blocks"]["ffn"]
+    expert_bytes = sum(ffn[n].numel() * ffn[n].element_size() for n in ("w1", "wg", "w2"))
+    checksum = sum(float(t.double().sum()) for t in _leaves(local))
+    prompt = prompt_tokens(cfg, 8, MIXTRAL_PROMPT, dev)
+    routes = record_routes()
+    oracle_tokens = oracle = None
+    res = {}
+    if rank == 0:
+        routes["on"], routes["calls"] = True, []
+        o_logits, cache = _rows_prefill(model, full, prompt, cfg)
+        res["oracle_prefill_routes"] = _recorded_routes(routes)
+        routes["on"], routes["calls"] = True, []
+        oracle_tokens, oracle = _oracle_decode(model, full, cache, o_logits, cfg)
+        res["oracle_decode_routes"] = _recorded_routes(routes)
+        local = clone_cache(local)
+        del full, cache
+        torch.cuda.empty_cache()
+    tokens = _teacher_tokens(oracle_tokens, (N_DECODE, 8), dev)
+    for k in kernels:
+        k.launches = 0
+    routes["on"], routes["calls"] = True, []
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    p_logits, pcache = model.prefill(local, prompt, axis_info=ai)
+    torch.cuda.synchronize(dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    res["prefill_routes"] = _recorded_routes(routes)
+    prefill_launches = {k.__name__.removesuffix("_cuda"): k.launches for k in kernels}
+    sharded = shd.shard_cache(scatter_pages(pcache, ai.n_page_shards), cfg, ai)
+    del pcache
+    routes["on"], routes["calls"] = True, []
+    got, steps, launches, calls, nbytes, sharded = _sharded_decode(model, local, sharded, tokens, ai, dev, kernels)
+    res["decode_routes"] = _recorded_routes(routes)
+    routes["restore"]()
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(p_logits).all()),
+          f"mixtral: non-finite sharded logits on rank {rank}")
+    check(launches["paged_attention"] == cfg.n_layers * N_DECODE and prefill_launches["flash_attention"] == cfg.n_layers,
+          f"mixtral: rank {rank} launched {prefill_launches} in the prefill, {launches} in decode")
+    res.update(checksum=checksum, expert_bytes=expert_bytes, digests=[_digest(g) for g in got],
+               prefill_digest=_digest(p_logits), steps_ms=[s * 1e3 for s in steps], prefill_ms=prefill_ms,
+               launches=launches, prefill_launches=prefill_launches, allreduces_per_step=calls / N_DECODE,
+               allreduce_bytes_per_step=nbytes / N_DECODE,
+               collective_ms_per_step=_collective_ms(model, local, sharded, tokens, ai, dev),
+               pool_pages_local=sharded["kv"]["pool_k"].shape[1])
+    if rank == 0:
+        res["prefill_row_errs"] = _logit_errs(p_logits[None], o_logits[None])[0].tolist()
+        res["decode_row_errs"] = _logit_errs(got, oracle).tolist()
+        res["misses"] = _near_tie_misses(got, oracle)
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return res
+
+
+def sharded_rank(ai, chosen, card):
+    """Step 15 on one rank: (a), (b), (c) in turn; every rank returns its
+    measures, rank 0 also its comparisons with the unsharded oracle."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = chosen.device
+    kernels = (flash_attention_cuda, paged_attention_cuda)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev) if ai.mesh.rank == 1 else None
+    rank = ai.mesh.rank
+    if rank == 0:
+        print(f"  {chosen.describe()}; mesh {ai.mesh.shape}, pages over {ai.page_axes}", flush=True)
+    mixtral = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=SHARD_MIXTRAL_LAYERS,
+                                  capacity_factor=SHARD_MOE_CAPACITY)
+    mistral = dataclasses.replace(get_config("mistral-large-123b"), n_layers=SHARD_MISTRAL_LAYERS)
+    cells = (("llama", lambda: _serve_sharded(get_config("llama3_2-1b"), "llama3_2-1b", ai, dev, kernels, flush)),
+             ("mixtral", lambda: _moe_sharded(mixtral, ai, dev, kernels)),
+             ("mistral", lambda: _serve_sharded(mistral, "mistral-large-123b", ai, dev, kernels, None)))
+    out = {"backend": chosen.backend, "device": str(dev)}
+    for name, run in cells:
+        t0 = time.perf_counter()
+        out[name] = run()
+        flush = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        r = out[name]
+        print(f"  [rank {rank}] {name} in {time.perf_counter() - t0:.1f} s: median decode step "
+              f"{statistics.median(r['steps_ms']):.2f} ms, peak {r['peak_gib']:.2f} GiB"
+              + (f", max err vs unsharded {r['max_err']:.3e}" if "max_err" in r else ""), flush=True)
+    return out
+
+
+def _route_flips(res) -> tuple:
+    """Rows whose token's router choice differs between the sharded run and
+    the oracle in some layer: (prefill rows (8,), decode (N_DECODE, 8))
+    flags. The sharded routes of data block d come from rank (d, model 0);
+    the oracle's prefill ran one row at a time."""
+    L, S = SHARD_MIXTRAL_LAYERS, MIXTRAL_PROMPT
+    oracle_p, oracle_d = res[0]["mixtral"]["oracle_prefill_routes"], res[0]["mixtral"]["oracle_decode_routes"]
+    blocks = [res[d * RANKS_MODEL]["mixtral"] for d in range(RANKS // RANKS_MODEL)]
+    rows = 8 // len(blocks)
+    prefill = torch.zeros(8, dtype=torch.bool)
+    decode = torch.zeros((N_DECODE, 8), dtype=torch.bool)
+    for b in range(8):
+        mine = blocks[b // rows]
+        for layer in range(L):
+            last = (b % rows) * S + S - 1
+            prefill[b] |= bool((oracle_p[b * L + layer][-1] != mine["prefill_routes"][layer][last]).any())
+            for s in range(N_DECODE):
+                decode[s, b] |= bool((oracle_d[s * L + layer][b] != mine["decode_routes"][s * L + layer][b % rows]).any())
+    return prefill, decode
+
+
+def sharded_phase(card) -> dict:
+    """Step 15: serving across ranks. Four ranks of a (data 2, model 2)
+    mesh, spawned, each with its own deadline; NCCL when the host has a card
+    for every rank, else gloo with every rank on the one card."""
+    from repro_torch.launch import mesh as launch_mesh
+
+    plan = launch_mesh.choose_backend(RANKS, 0)
+    # four processes' caching allocators on one card: segments that grow
+    # in place leave less of it stranded between them
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    print(f"  backend {plan.backend}, world size {RANKS} ({RANKS // RANKS_MODEL} data x {RANKS_MODEL} model), "
+          f"{torch.cuda.device_count()} card(s); {card}", flush=True)
+    t0 = time.perf_counter()
+    res = launch_mesh.spawn(sharded_rank, RANKS, (card,), model_parallel=RANKS_MODEL, device="cuda",
+                            timeout_s=SHARD_DEADLINE_S)
+    wall = time.perf_counter() - t0
+    check(all(r["backend"] == plan.backend for r in res), f"ranks chose {[r['backend'] for r in res]}")
+    out = {"backend": plan.backend, "ranks": RANKS, "cards": torch.cuda.device_count(), "wall_s": wall,
+           "card": card}
+    for name in ("llama", "mixtral", "mistral"):
+        rs = [r[name] for r in res]
+        check(len({r["checksum"] for r in rs if name != "mixtral"}) <= 1,
+              f"{name}: the ranks drew different weights")
+        for r in rs[1:]:
+            check(r["digests"] == rs[0]["digests"], f"{name}: the ranks' logits are not bit-equal")
+        if name == "mixtral":
+            check(all(r["prefill_digest"] == rs[0]["prefill_digest"] for r in rs),
+                  "mixtral: the ranks' prefill logits are not bit-equal")
+        med = [statistics.median(r["steps_ms"]) for r in rs]
+        row = {"decode_step_ms": med, "collective_ms_per_step": [r["collective_ms_per_step"] for r in rs],
+               "allreduces_per_step": rs[0]["allreduces_per_step"],
+               "allreduce_bytes_per_step": rs[0]["allreduce_bytes_per_step"],
+               "launches": [r["launches"] for r in rs], "prefill_launches": [r["prefill_launches"] for r in rs],
+               "peak_gib": [r["peak_gib"] for r in rs], "pool_pages_local": rs[0]["pool_pages_local"]}
+        misses = rs[0]["misses"]
+        if name == "mixtral":
+            flips_p, flips_d = _route_flips(res)
+            perr = torch.tensor(rs[0]["prefill_row_errs"])
+            derr = torch.tensor(rs[0]["decode_row_errs"])
+            clean_p, clean_d = perr[~flips_p], derr[~flips_d]
+            row.update(expert_bytes=[r["expert_bytes"] for r in rs], prefill_ms=[r["prefill_ms"] for r in rs],
+                       prefill_err=float(clean_p.max()) if clean_p.numel() else None,
+                       max_err=float(clean_d.max()) if clean_d.numel() else None,
+                       prefill_flip_rows=int(flips_p.sum()), decode_flip_rows=int(flips_d.sum()))
+            print(f"  (b) mixtral-8x7b ({SHARD_MIXTRAL_LAYERS} layers, capacity factor {SHARD_MOE_CAPACITY}): "
+                  f"expert bytes per rank {row['expert_bytes']}; sharded prefill of 8 x {MIXTRAL_PROMPT} tokens "
+                  f"{[round(x, 2) for x in row['prefill_ms']]} ms; logits vs the unsharded model, max |d| over "
+                  f"max |oracle| on rows whose router choices agree: prefill {row['prefill_err']}, decode "
+                  f"{row['max_err']} (tol {SHARD_LOGITS_TOL}); rows with a router choice that differs: prefill "
+                  f"{row['prefill_flip_rows']} of 8, decode {row['decode_flip_rows']} of {N_DECODE * 8}",
+                  flush=True)
+            for err in (row["prefill_err"], row["max_err"]):
+                check(err is None or err <= SHARD_LOGITS_TOL, f"mixtral: sharded logits disagree: {err}")
+            check(row["max_err"] is not None, "mixtral: every decode row's routing differs")
+            misses = [m for m in misses if not flips_d[m[0], m[1]]]
+        else:
+            row.update(max_err=rs[0]["max_err"], step_errs=rs[0]["step_errs"],
+                       kernel_check=[r["kernel_check"] for r in rs])
+            print(f"  ({'a' if name == 'llama' else 'c'}) {name}: sharded vs unsharded logits, max |d| over "
+                  f"max |oracle| {row['max_err']:.3e} (tol {SHARD_LOGITS_TOL}); each rank's paged kernel on its "
+                  f"stripe vs plain: " + "; ".join(
+                      f"offset {k['page_offset']} ({k['live_rows']} rows live) {k['scaled_err']:.2e}/{k['stat_err']:.2e}"
+                      for k in row["kernel_check"]), flush=True)
+            check(row["max_err"] <= SHARD_LOGITS_TOL, f"{name}: sharded logits disagree with the unsharded model")
+        for s, b, got, want, gap in misses:
+            print(f"    greedy token differs at step {s}, row {b}: sharded {got}, oracle {want}; the oracle's "
+                  f"top-2 gap {gap:.3e} of max |logit|", flush=True)
+            check(gap <= SHARD_LOGITS_TOL, f"{name}: a greedy token differs where the oracle is no near-tie")
+        row["greedy_misses"] = len(misses)
+        print(f"    {name} per rank: median decode step {[round(x, 3) for x in med]} ms (host clock, "
+              f"synchronised); {row['allreduces_per_step']:.0f} all-reduces a step, "
+              f"{row['allreduce_bytes_per_step']:.0f} bytes; inside them "
+              f"{[round(x, 3) for x in row['collective_ms_per_step']]} ms a step; launches {row['launches']} "
+              f"(prefill {row['prefill_launches']}); peak {[round(x, 2) for x in row['peak_gib']]} GiB; "
+              f"{row['pool_pages_local']} pool pages a rank; {card}", flush=True)
+        out[name] = row
+    shard = res[1]["llama"]["kernel_check"]
+    print(f"  paged kernel on rank 1's stripe (llama, page_offset {shard['page_offset']}, "
+          f"{shard['pages_local']} pages): {shard['ms']:.4f} ms, plain {shard['plain_ms']:.4f} ms, bound "
+          f"{shard['bound_ms']:.5f} ms ({shard['bound_by']}: {shard['bytes']} bytes); {card}", flush=True)
+    out["paged_shard"] = shard
+    print(f"  step 15 in {wall:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -2642,7 +3123,14 @@ def main() -> None:
     fed_sky = federated_sky_phase(dev, card, kernels, Deployment.paper())
     gc.collect()
 
-    # 15. results
+    # 15. serving across ranks: four spawned ranks, the KV pools striped over them
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serving across ranks ({torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated here):",
+          flush=True)
+    sharded = sharded_phase(card)
+
+    # 16. results
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:79"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -2660,6 +3148,8 @@ def main() -> None:
             "launches_mistral": mistral["launches"][name], "launches_seamless": seamless["launches"][name],
             "launches_train": training["launches"][name], "launches_sky": sky["launches"][name],
             "launches_federated_sky": fed_sky["launches"][name],
+            "launches_sharded": {cell: [n[name] for n in sharded[cell]["launches"]]
+                                 for cell in ("llama", "mixtral", "mistral")},
             "shapes": rows[name], **grids[name],
         })
     measures = ("prefill_ms", "decode_step_ms", "decode_step_least_ms", "decode_tok_s", "build_peak_gib",
@@ -2675,7 +3165,8 @@ def main() -> None:
     print(json.dumps({"kernels": kernels, "seamless": {k: seamless[k] for k in measures},
                       "training": {k: training[k] for k in train_measures},
                       "sky": {"card": card, **{k: sky[k] for k in sky_measures}},
-                      "federated_sky": {"card": card, **{k: fed_sky[k] for k in fed_measures}}}), flush=True)
+                      "federated_sky": {"card": card, **{k: fed_sky[k] for k in fed_measures}},
+                      "sharded": sharded}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

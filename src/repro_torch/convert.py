@@ -6,12 +6,15 @@
 e.g. ``jax.tree.map(np.asarray, params)`` of
 ``build_model(cfg).init(PRNGKey(0))[0]`` -- and returns the port's params
 with the same structure, shapes, dtypes and values; :func:`opt_state_from_jax`
-does the same for the AdamW state. No JAX is imported here.
+does the same for the AdamW state. Given an ``axis_info`` it returns this
+rank's params instead: the expert weights cut to the rank's shard
+(:func:`repro_torch.parallel.sharding.local_param_specs`), before they are
+copied. No JAX is imported here.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +22,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import PORTED
+from repro_torch.parallel.axisinfo import AxisInfo
+from repro_torch.parallel.sharding import local_param_specs, shard_leaf
 
 
 def _attn_block_shapes(cfg: ModelConfig, *lead: int) -> Dict:
@@ -95,23 +100,34 @@ def _to_torch(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(x)
 
 
-def _convert(tree, shapes, device, path: Tuple[str, ...]):
+def _convert(tree, shapes, device, path: Tuple[str, ...], take=lambda path, arr: arr):
     if isinstance(shapes, dict):
         if not isinstance(tree, dict) or set(tree) != set(shapes):
             got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
             raise ValueError(f"params{list(path)}: expected keys {sorted(shapes)}, got {got}")
-        return {k: _convert(tree[k], shapes[k], device, path + (k,)) for k in shapes}
+        return {k: _convert(tree[k], shapes[k], device, path + (k,), take) for k in shapes}
     arr = np.asarray(tree)
     if tuple(arr.shape) != tuple(shapes):
         raise ValueError(f"params{list(path)}: expected shape {shapes}, got {arr.shape}")
-    return _to_torch(arr).to(device)
+    return _to_torch(take(path, arr)).to(device)
 
 
-def params_from_jax(params_np, cfg: ModelConfig, device="cuda"):
-    """JAX param pytree (numpy leaves) -> the port's params on ``device``."""
+def params_from_jax(params_np, cfg: ModelConfig, device="cuda", axis_info: Optional[AxisInfo] = None):
+    """JAX param pytree (numpy leaves) -> the port's params on ``device``;
+    with ``axis_info``, this rank's (its experts or expert ffn columns)."""
     shapes = param_shapes(cfg)
     device = resolve_device(device)
-    return _convert(params_np, shapes, device, ())
+    if axis_info is None:
+        return _convert(params_np, shapes, device, ())
+    specs = local_param_specs(shapes, cfg, axis_info)
+
+    def take(path, arr):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        return shard_leaf(arr, spec, axis_info)
+
+    return _convert(params_np, shapes, device, (), take)
 
 
 def opt_state_from_jax(opt_state_np, cfg: ModelConfig, device="cuda"):

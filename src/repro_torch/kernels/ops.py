@@ -7,7 +7,9 @@
     :mod:`repro_torch.kernels.flash_attention` / ``paged_attention`` decide
     from the tensors' device; a CUDA tensor never falls back);
   * ``"ref"`` -- the quadratic oracles of :mod:`repro_torch.kernels.ref`,
-    for tests and for ``chip_smoke.py``'s comparisons only;
+    for tests and for ``chip_smoke.py``'s comparisons only (a paged call
+    sharded over ranks takes the plain version's partials of its stripe
+    instead, as the JAX package's ``"ref"`` takes its XLA partials);
   * ``"xla"`` (flash attention only) -- the JAX package's own XLA path
     (``_causal_tiled_flash`` over ``_flash_xla``: q-chunks with an f32
     softmax) in plain PyTorch, so that autograd runs through it: the
@@ -23,7 +25,9 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.paged_attention import paged_attention_cuda
+from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
+from repro_torch.parallel import collectives
+from repro_torch.parallel.axisinfo import Mesh
 
 _IMPLS = (None, "ref", "xla")
 
@@ -124,32 +128,57 @@ def paged_attention(
     window: Optional[int] = None,
     page_offset: int = 0,
     axis_names: Sequence[str] = (),
+    mesh: Optional[Mesh] = None,
     impl: Optional[str] = None,
 ) -> torch.Tensor:
     """Decode attention over the paged pool (the paper's striped-page READ):
     the kernel's unnormalised ``(o, m, l)`` become ``o / max(l, 1e-30)`` in
     q's dtype. An int8 pool (with its per-token scales) is dequantized to
-    bf16 first, as the JAX wrapper does, and the kernel reads that."""
+    bf16 first, as the JAX wrapper does, and the kernel reads that.
+
+    With ``axis_names`` (and the ``mesh`` that names them) the pool is this
+    rank's stripe of a pool sharded over those axes, its first page the
+    global page ``page_offset``: the kernel (or, for ``impl="ref"``, its
+    plain version: the JAX rule, which never short-cuts a sharded call to
+    the unsharded oracle) computes the partial statistics of this rank's
+    pages, and :func:`combine_partials` merges them across the ranks
+    (flash-decoding split-K over ranks, lock-free)."""
     _check_impl(impl)
     if pool_k.dtype == torch.int8:
         if scale_k is None or scale_v is None:
             raise ValueError("an int8 pool needs scale_k and scale_v")
         pool_k = dequantize_pool(pool_k, scale_k)
         pool_v = dequantize_pool(pool_v, scale_v)
-    if axis_names:
-        raise NotImplementedError(
-            "the split-K combine across pool shards is not ported yet (ROADMAP Queue 1, item 6)"
-        )
-    if impl == "ref":
+    if impl == "ref" and not axis_names:
         return _ref.paged_attention_ref(
             q, pool_k, pool_v, tables, page_pos, lengths, window=window
         )
-    o, m, l = paged_attention_cuda(
+    local = paged_attention_plain if impl == "ref" else paged_attention_cuda
+    o, m, l = local(
         q.contiguous(), pool_k, pool_v, tables.to(torch.int32).contiguous(),
         page_pos.to(torch.int32).contiguous(), lengths.to(torch.int32).contiguous(),
         window=window, page_offset=page_offset,
     )
+    if axis_names:
+        if mesh is None:
+            raise ValueError("a sharded paged_attention (axis_names) needs the mesh that names its axes")
+        o, l = combine_partials(o, m, l, tuple(axis_names), mesh)
     return (o / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+def combine_partials(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor, axis_names: Tuple[str, ...],
+                     mesh: Mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge each rank's unnormalised ``(o (B,H,D), m (B,H), l (B,H))`` over
+    ``axis_names``: ``m_g = pmax(m)``, then ``o`` and ``l`` scaled by
+    ``exp(m - m_g)`` and summed, as the JAX package's ``shard_map`` body
+    does. A rank with no page of a row has ``m = -1e30`` and ``o = l = 0``,
+    so it adds exact zeros; a row with no token anywhere stays ``o = l = 0``.
+    The two sums travel as one all-reduce of ``(B, H, D + 1)``. Returns the
+    summed ``(o, l)``."""
+    m_g = collectives.pmax(m, axis_names, mesh)
+    scale = torch.exp(m - m_g)
+    ol = collectives.psum(torch.cat([o * scale[..., None], (l * scale)[..., None]], dim=-1), axis_names, mesh)
+    return ol[..., :-1], ol[..., -1]
 
 
 INT8_MAX = 127.0

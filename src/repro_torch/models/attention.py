@@ -1,8 +1,13 @@
-"""GQA attention: prefill (flash) and paged decode, the single-device
-counterpart of :mod:`repro.models.attention`.
+"""GQA attention: prefill (flash) and paged decode, the counterpart of
+:mod:`repro.models.attention`.
 
 Weight layouts are the JAX package's: ``wq (d, H, hd)``, ``wk``/``wv
-(d, K, hd)``, ``wo (H, hd, d)``.
+(d, K, hd)``, ``wo (H, hd, d)``. Under an ``axis_info`` decode reads and
+writes a page pool striped over every mesh axis (the paper's page
+striping): each rank holds its stripe, writes only the pages it owns,
+computes partial online-softmax statistics over them, and the partials are
+combined with collectives; q, k, v, the tables and ``page_pos`` are
+replicated, as in the JAX package's ``shard_map`` body.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.modules import dense_init
+from repro_torch.parallel.axisinfo import AxisInfo, page_offset_in_shard
 
 
 def attention_init(gen: torch.Generator, cfg: ModelConfig):
@@ -99,6 +105,7 @@ def attention_decode(
     cache: CacheLayer,
     lengths: torch.Tensor,  # (B,) tokens already cached (new token position)
     cfg: ModelConfig,
+    axis_info: Optional[AxisInfo] = None,
     *,
     update: bool = True,
     rope: bool = True,
@@ -108,15 +115,26 @@ def attention_decode(
     the cache's pools, and into its scales for an int8 pool), then attend
     over the paged pool (paper READ). ``update=False`` gives read-only
     attention over ``lengths`` cached tokens (cross-attention over a
-    prefilled pool): nothing is written and the cache comes back as given."""
+    prefilled pool): nothing is written and the cache comes back as given.
+
+    With ``axis_info`` the pools (and scales) are this rank's stripe over
+    ``page_axes`` (:func:`repro_torch.parallel.sharding.shard_cache`): the
+    write lands only if this rank owns the page, every rank computes the
+    same new ``page_pos`` (it stays replicated), and the read combines the
+    ranks' partial statistics."""
     positions = lengths[:, None] if rope else None
     quant = cache["pool_k"].dtype == torch.int8
     pool_k, pool_v, page_pos = cache["pool_k"], cache["pool_v"], cache["page_pos"]
     sk, sv = cache.get("scale_k"), cache.get("scale_v")
+    if axis_info is None:
+        offset, axes, mesh = 0, (), None
+    else:
+        axes, mesh = axis_info.page_axes, axis_info.mesh
+        offset = page_offset_in_shard(axes, pool_k.shape[0], mesh)
     if update:
         q, k, v = qkv(params, x, cfg, positions, rope=rope)
         out = ops.paged_update(pool_k, pool_v, cache["tables"], page_pos, lengths, k[:, 0], v[:, 0],
-                               scale_k=sk, scale_v=sv)
+                               scale_k=sk, scale_v=sv, page_offset=offset)
         if quant:
             pool_k, pool_v, page_pos, sk, sv = out
         else:
@@ -127,7 +145,8 @@ def attention_decode(
             q = apply_rope(q, positions, cfg.rope_theta)
     o = ops.paged_attention(
         q[:, 0], pool_k, pool_v, cache["tables"], page_pos, lengths + (1 if update else 0),
-        scale_k=sk, scale_v=sv, window=cfg.sliding_window, impl=impl,
+        scale_k=sk, scale_v=sv, window=cfg.sliding_window, page_offset=offset, axis_names=axes, mesh=mesh,
+        impl=impl,
     )
     new_cache = dict(cache, pool_k=pool_k, pool_v=pool_v, page_pos=page_pos)
     if quant:
@@ -141,15 +160,18 @@ def init_decode_cache(
     seq_len: int,
     n_layers: int,
     dtype: Optional[torch.dtype] = None,
+    pad_pages_to: int = 1,
     *,
     device,
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Allocate an empty paged cache for ``n_layers`` attention layers.
 
     With a sliding window the per-sequence ring is only ``window/T + 1`` pages
-    (rolling buffer); otherwise ``seq_len/T`` pages. Returns (cache, lengths);
-    each cache leaf is stacked over layers: pool_k (L, P, T, K, hd), and
-    for int8 pools the f32 dequant scales scale_k/scale_v (L, P, T, K).
+    (rolling buffer); otherwise ``seq_len/T`` pages. ``pad_pages_to`` pads
+    the pool's page count (unreferenced tail pages) so that it stripes
+    evenly over the page axes. Returns (cache, lengths); each cache leaf is
+    stacked over layers: pool_k (L, P, T, K, hd), and for int8 pools the f32
+    dequant scales scale_k/scale_v (L, P, T, K).
     """
     T = cfg.kv_page_tokens
     dtype = dtype or cfg.kvdtype()
@@ -157,9 +179,9 @@ def init_decode_cache(
         ring = cfg.sliding_window // T + 1
     else:
         ring = max(seq_len // T, 1)
-    n_pages = batch * ring
+    n_pages = -(-(batch * ring) // pad_pages_to) * pad_pages_to
     K, hd = cfg.n_kv_heads, cfg.head_dim
-    tables = torch.arange(n_pages, dtype=torch.int32, device=device).reshape(batch, ring)
+    tables = torch.arange(batch * ring, dtype=torch.int32, device=device).reshape(batch, ring)
     page_pos = (torch.arange(ring, dtype=torch.int32, device=device) * T)[None, :].repeat(batch, 1)
     cache = {
         "pool_k": torch.zeros((n_layers, n_pages, T, K, hd), dtype=dtype, device=device),

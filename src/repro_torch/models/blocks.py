@@ -18,6 +18,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import mlp, rmsnorm
 from repro_torch.models.modules import dense_init
+from repro_torch.parallel.axisinfo import AxisInfo
 
 
 def mlp_init(gen: torch.Generator, cfg: ModelConfig):
@@ -39,34 +40,37 @@ def block_init(gen: torch.Generator, cfg: ModelConfig):
     return params
 
 
-def _ffn(params, h: torch.Tensor, cfg: ModelConfig):
+def _ffn(params, h: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisInfo] = None):
     """The feed-forward half: (out, aux loss), aux 0 for a dense block."""
     if cfg.is_moe:
-        return moe_mod.moe_ffn(params, h, cfg)
+        return moe_mod.moe_ffn(params, h, cfg, axis_info)
     return mlp(params, h, cfg), torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def block_apply(
-    params, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True, return_kv: bool = False,
-    impl: Optional[str] = None,
+    params, x: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisInfo] = None, *, causal: bool = True,
+    return_kv: bool = False, impl: Optional[str] = None,
 ):
-    """Full-sequence block (prefill, encoder). Returns (x, aux), or (x, aux, (k, v))."""
+    """Full-sequence block (prefill, encoder). Returns (x, aux), or (x, aux,
+    (k, v)). Under ``axis_info`` only a MoE ffn is split over the ranks;
+    attention runs whole on every rank (its K/V are replicated, as the
+    JAX package's values outside ``shard_map``)."""
     h = rmsnorm(x, params["ln1"])
     a, kv = attn.attention_train(params["attn"], h, cfg, causal=causal, return_kv=True, impl=impl)
     x = x + a
-    f, aux = _ffn(params["ffn"], rmsnorm(x, params["ln2"]), cfg)
+    f, aux = _ffn(params["ffn"], rmsnorm(x, params["ln2"]), cfg, axis_info)
     x = x + f
     return (x, aux, kv) if return_kv else (x, aux)
 
 
 def block_decode(
     params, x: torch.Tensor, cache: attn.CacheLayer, lengths: torch.Tensor,
-    cfg: ModelConfig, *, impl: Optional[str] = None,
+    cfg: ModelConfig, axis_info: Optional[AxisInfo] = None, *, impl: Optional[str] = None,
 ):
     h = rmsnorm(x, params["ln1"])
-    a, cache = attn.attention_decode(params["attn"], h, cache, lengths, cfg, impl=impl)
+    a, cache = attn.attention_decode(params["attn"], h, cache, lengths, cfg, axis_info, impl=impl)
     x = x + a
-    f, _ = _ffn(params["ffn"], rmsnorm(x, params["ln2"]), cfg)
+    f, _ = _ffn(params["ffn"], rmsnorm(x, params["ln2"]), cfg, axis_info)
     return x + f, cache
 
 
@@ -88,16 +92,17 @@ def dec_block_apply(params, x: torch.Tensor, enc_out: torch.Tensor, cfg: ModelCo
 
 
 def dec_block_decode(params, x: torch.Tensor, self_cache: attn.CacheLayer, cross_cache: attn.CacheLayer,
-                     lengths: torch.Tensor, enc_len: torch.Tensor, cfg: ModelConfig, *,
-                     impl: Optional[str] = None):
+                     lengths: torch.Tensor, enc_len: torch.Tensor, cfg: ModelConfig,
+                     axis_info: Optional[AxisInfo] = None, *, impl: Optional[str] = None):
     """One decode step of a decoder block: self-attention appends to
     ``self_cache`` (in place), cross-attention reads ``cross_cache`` (never
-    written) over ``enc_len`` tokens. Returns (x, the new self cache)."""
+    written) over ``enc_len`` tokens; under ``axis_info`` both pools are
+    striped. Returns (x, the new self cache)."""
     a, self_cache = attn.attention_decode(params["self"], rmsnorm(x, params["ln1"]), self_cache, lengths, cfg,
-                                          impl=impl)
+                                          axis_info, impl=impl)
     x = x + a
     a, _ = attn.attention_decode(params["cross"], rmsnorm(x, params["ln2"]), cross_cache, enc_len, cfg,
-                                 update=False, rope=False, impl=impl)
+                                 axis_info, update=False, rope=False, impl=impl)
     x = x + a
     return x + mlp(params["mlp"], rmsnorm(x, params["ln3"]), cfg), self_cache
 

@@ -6,15 +6,16 @@
 * ``init(seed=0, device="cuda", dtype=None) -> params`` -- nested dicts with
   the JAX package's layout, per-layer leaves stacked ``(L, ...)`` (the
   hybrid's Mamba2 layers ``(n_groups, per_group, ...)``);
-* ``prefill(params, inputs, impl=None) -> (logits, cache)``, ``inputs``
-  tokens ``(B, S)`` or embeddings ``(B, S, d)``, or for the encoder-decoder
-  the JAX package's batch dict ``{"enc_embeds": (B, S_enc, d)[, "tokens":
-  (B, S_dec)]}``;
-* ``decode_step(params, cache, tokens, impl=None) -> (logits, cache)``, which
-  writes the new token's K/V (and an int8 pool's scales) into the cache's
-  pools and the new SSM states into its state stacks, in place;
-* ``init_cache(batch, seq_len, device="cuda") -> cache``;
-* ``train_loss(params, batch, impl="xla") -> (loss, metrics)``, ``batch``
+* ``prefill(params, inputs, impl=None, axis_info=None) -> (logits, cache)``,
+  ``inputs`` tokens ``(B, S)`` or embeddings ``(B, S, d)``, or for the
+  encoder-decoder the JAX package's batch dict ``{"enc_embeds": (B, S_enc,
+  d)[, "tokens": (B, S_dec)]}``;
+* ``decode_step(params, cache, tokens, impl=None, axis_info=None) ->
+  (logits, cache)``, which writes the new token's K/V (and an int8 pool's
+  scales) into the cache's pools and the new SSM states into its state
+  stacks, in place;
+* ``init_cache(batch, seq_len, device="cuda", pad_pages_to=1) -> cache``;
+* ``train_loss(params, batch, impl="xla", axis_info=None) -> (loss, metrics)``, ``batch``
   the JAX package's dict: ``tokens`` (or ``embeds`` for a ``vlm`` backbone;
   ``enc_embeds`` and ``tokens`` for the encoder-decoder) and ``labels``
   (-1 is padding). Differentiable: autograd runs through it, remat as
@@ -29,6 +30,19 @@ autograd; the training loss's attention is ``ops.flash_attention``'s
 ``impl="xla"`` (the JAX package's XLA path in plain PyTorch), chosen by
 ``use_pallas=False`` as in the JAX package, whose Pallas kernel has no
 backward; neither CUDA kernel runs in training.
+
+Across ranks (``axis_info``, one process per rank; see
+:mod:`repro_torch.parallel.sharding`): every rank computes the whole model
+on replicated activations, with a MoE's experts split over the model axis.
+``prefill`` returns a replicated cache without decode-headroom pages (the
+JAX package's distributed layout: the engine's allocator owns headroom),
+which :func:`repro_torch.parallel.sharding.shard_cache` stripes for
+``decode_step``; ``decode_step`` takes the pools striped and the SSM states
+replicated (the JAX package shards those over the batch axes; each row's
+state depends on that row alone, so the numbers are the same). The JAX
+package's layout hints (``constrain_batch``, ``_constrain_logits``) have no
+effect on the numbers and no counterpart here. Training across ranks is not
+ported (ROADMAP Queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -46,6 +60,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import cross_entropy, embed, rmsnorm, unembed
 from repro_torch.models.modules import embed_init
+from repro_torch.parallel.axisinfo import AxisInfo
 
 PORTED = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec", "audio")
 MOE_AUX_WEIGHT = 0.01
@@ -76,6 +91,52 @@ def build_model(cfg: ModelConfig) -> Model:
     if fam in ("encdec", "audio"):
         return _encdec_lm(cfg)
     raise ValueError(f"unknown family {fam}")
+
+
+def _prefixed(axes, *lead: str):
+    if isinstance(axes, dict):
+        return {k: _prefixed(v, *lead) for k, v in axes.items()}
+    return tuple(lead) + tuple(axes)
+
+
+def _attn_axes():
+    return {"wq": ("embed", "q_heads", "head"), "wk": ("embed", "kv_heads", "head"),
+            "wv": ("embed", "kv_heads", "head"), "wo": ("q_heads", "head", "embed")}
+
+
+_MLP_AXES = {"wi": ("embed", "ffn"), "wg": ("embed", "ffn"), "wo": ("ffn", "embed")}
+_MOE_AXES = {"router": ("embed", "experts_router"), "w1": ("experts", "embed", "moe_ffn"),
+             "wg": ("experts", "embed", "moe_ffn"), "w2": ("experts", "moe_ffn", "embed")}
+_SSM_AXES = {"in_proj": ("embed", "ssm_proj"), "conv_w": ("conv", "ssm_conv_dim"), "conv_b": ("ssm_conv_dim",),
+             "A_log": ("ssm_heads",), "D": ("ssm_heads",), "dt_bias": ("ssm_heads",), "norm": ("ssm_inner",),
+             "out_proj": ("ssm_inner", "embed")}
+_NORM = ("embed",)
+
+
+def param_axes(cfg: ModelConfig) -> Dict:
+    """The logical axis names of every parameter, a tree equal to the axes
+    tree the JAX package's ``model.init`` returns beside its params (the
+    port's own init returns params alone): stacked leaves get ``"layers"``
+    in front, the hybrid's Mamba2 stack ``("groups", "layers")``."""
+    if cfg.family not in PORTED:
+        raise ValueError(f"unknown family {cfg.family}")
+    block = {"ln1": _NORM, "attn": _attn_axes(), "ln2": _NORM, "ffn": _MOE_AXES if cfg.is_moe else _MLP_AXES}
+    ssm_block = {"ln": _NORM, "ssm": _SSM_AXES}
+    top = {"embed": {"table": ("vocab", "embed_table")}}
+    if cfg.family in ("encdec", "audio"):
+        dec = {"ln1": _NORM, "self": _attn_axes(), "ln2": _NORM, "cross": _attn_axes(), "ln3": _NORM,
+               "mlp": _MLP_AXES}
+        top.update(encoder=_prefixed(block, "layers"), decoder=_prefixed(dec, "layers"), ln_enc=_NORM,
+                   ln_dec=_NORM)
+        return top
+    if cfg.family == "hybrid":
+        top.update(mamba=_prefixed(ssm_block, "groups", "layers"), shared_attn=_prefixed(block))
+    elif cfg.family == "ssm":
+        top["blocks"] = _prefixed(ssm_block, "layers")
+    else:
+        top["blocks"] = _prefixed(block, "layers")
+    top["ln_f"] = _NORM
+    return top
 
 
 def serving_params(params, cfg: ModelConfig):
@@ -170,6 +231,11 @@ def _ce(params, h: torch.Tensor, batch, cfg: ModelConfig):
     return cross_entropy(unembed(params["embed"], h, cfg), batch["labels"], cfg.vocab_size)
 
 
+def _no_sharded_training(axis_info) -> None:
+    if axis_info is not None:
+        raise NotImplementedError("training across ranks is not ported yet (ROADMAP Queue 1, item 6)")
+
+
 def _no_aux(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -187,10 +253,17 @@ def _pool_cache(cfg: ModelConfig, pool_k, pool_v, tables, page_pos) -> Dict[str,
             "tables": tables, "page_pos": page_pos}
 
 
-def _paged_cache(cfg: ModelConfig, ks, vs) -> Dict[str, torch.Tensor]:
-    """Each attention layer's prefill K/V laid out as pages with one
-    headroom page per sequence, stacked over layers."""
-    paged = [ops.prefill_into_pages(k, v, cfg.kv_page_tokens, extra_pages=1) for k, v in zip(ks, vs)]
+def _pages_extra(axis_info: Optional[AxisInfo]) -> int:
+    """Decode-headroom pages a sequence gets at prefill: one on one device,
+    none across ranks (the JAX package's rule: the engine's page allocator
+    owns decode headroom there)."""
+    return 0 if axis_info is not None else 1
+
+
+def _paged_cache(cfg: ModelConfig, ks, vs, extra: int = 1) -> Dict[str, torch.Tensor]:
+    """Each attention layer's prefill K/V laid out as pages with ``extra``
+    headroom pages per sequence, stacked over layers."""
+    paged = [ops.prefill_into_pages(k, v, cfg.kv_page_tokens, extra_pages=extra) for k, v in zip(ks, vs)]
     pool_k, pool_v, tables, page_pos = (torch.stack(parts) for parts in zip(*paged))
     return _pool_cache(cfg, pool_k, pool_v, tables, page_pos)
 
@@ -199,12 +272,12 @@ def _lengths(Bb: int, S: int, device) -> torch.Tensor:
     return torch.full((Bb,), S, dtype=torch.int32, device=device)
 
 
-def _attn_decode(params, h, kv, i: int, lengths, cfg: ModelConfig, impl):
+def _attn_decode(params, h, kv, i: int, lengths, cfg: ModelConfig, impl, axis_info=None):
     """Attention layer ``i`` of a stacked paged cache, one decode step.
     Pools and int8 scales are written in place through the layer's views;
     returns (h, the layer's new page_pos)."""
     layer_cache = {name: t[i] for name, t in kv.items()}
-    h, new = B.block_decode(params, h, layer_cache, lengths, cfg, impl=impl)
+    h, new = B.block_decode(params, h, layer_cache, lengths, cfg, axis_info, impl=impl)
     return h, new["page_pos"]
 
 
@@ -231,49 +304,56 @@ def _decoder_lm(cfg: ModelConfig) -> Model:
         ln_f = torch.ones((cfg.d_model,), dtype=dtype or cfg.pdtype(), device=gen.device)
         return {"embed": {"table": table}, "blocks": blocks, "ln_f": ln_f}
 
-    def init_cache(batch: int, seq_len: int, device="cuda"):
+    def init_cache(batch: int, seq_len: int, device="cuda", pad_pages_to: int = 1):
         cache, lengths = attn.init_decode_cache(
-            cfg, batch, seq_len, cfg.n_layers, device=resolve_device(device)
+            cfg, batch, seq_len, cfg.n_layers, pad_pages_to=pad_pages_to, device=resolve_device(device)
         )
         return {"kv": cache, "lengths": lengths}
 
     @torch.no_grad()
-    def prefill(params, inputs: torch.Tensor, impl: Optional[str] = None):
+    def prefill(params, inputs: torch.Tensor, impl: Optional[str] = None,
+                axis_info: Optional[AxisInfo] = None):
         """``inputs``: tokens (B, S) or, as ``_inputs_to_h`` takes them,
         embeddings (B, S, d) (a floating tensor); S a multiple of
         ``kv_page_tokens``. Returns the last position's f32 logits
         (B, padded_vocab) and a paged cache with one headroom page per
-        sequence (int8 pools quantized here, for an int8 config)."""
+        sequence, none under ``axis_info`` (int8 pools quantized here, for
+        an int8 config)."""
         h = _inputs_to_h(params, inputs, cfg)
         Bb, S = h.shape[:2]
         ks, vs = [], []
         for i in range(cfg.n_layers):
-            h, _, (k, v) = B.block_apply(_layer(params["blocks"], i), h, cfg, return_kv=True, impl=impl)
+            h, _, (k, v) = B.block_apply(_layer(params["blocks"], i), h, cfg, axis_info, return_kv=True,
+                                         impl=impl)
             ks.append(k)
             vs.append(v)
         h = rmsnorm(h, params["ln_f"])
         logits = unembed(params["embed"], h[:, -1:], cfg)[:, 0]
-        return logits, {"kv": _paged_cache(cfg, ks, vs), "lengths": _lengths(Bb, S, h.device)}
+        kv = _paged_cache(cfg, ks, vs, _pages_extra(axis_info))
+        return logits, {"kv": kv, "lengths": _lengths(Bb, S, h.device)}
 
     @torch.no_grad()
-    def decode_step(params, cache, tokens: torch.Tensor, impl: Optional[str] = None):
+    def decode_step(params, cache, tokens: torch.Tensor, impl: Optional[str] = None,
+                    axis_info: Optional[AxisInfo] = None):
         """tokens (B,). Appends each sequence's token to the pools in place
         (an int8 pool's scales too, so they come back updated in place); only
-        ``page_pos`` is re-stacked."""
+        ``page_pos`` is re-stacked. Under ``axis_info`` the pools are this
+        rank's stripes."""
         h = embed(params["embed"], tokens[:, None], cfg)
         lengths, kv = cache["lengths"], cache["kv"]
         page_pos = []
         for i in range(cfg.n_layers):
-            h, pp = _attn_decode(_layer(params["blocks"], i), h, kv, i, lengths, cfg, impl)
+            h, pp = _attn_decode(_layer(params["blocks"], i), h, kv, i, lengths, cfg, impl, axis_info)
             page_pos.append(pp)
         h = rmsnorm(h, params["ln_f"])
         logits = unembed(params["embed"], h, cfg)[:, 0]
         return logits, {"kv": dict(kv, page_pos=torch.stack(page_pos)), "lengths": lengths + 1}
 
-    def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla"):
+    def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla", axis_info=None):
         """``loss = ce + MOE_AUX_WEIGHT * aux``; metrics ``ce``, ``aux``
         (the MoE load-balance loss summed over layers, 0 for a dense model),
         ``acc``."""
+        _no_sharded_training(axis_info)
         impl = _train_impl(cfg, impl)
         h = _batch_h(params, batch, cfg)
         body = lambda p, x: B.block_apply(p, x, cfg, impl=impl)  # noqa: E731
@@ -306,16 +386,19 @@ def _ssm_lm(cfg: ModelConfig) -> Model:
         ln_f = torch.ones((cfg.d_model,), dtype=dtype or cfg.pdtype(), device=gen.device)
         return {"embed": {"table": table}, "blocks": blocks, "ln_f": ln_f}
 
-    def init_cache(batch: int, seq_len: int, device="cuda"):
+    def init_cache(batch: int, seq_len: int, device="cuda", pad_pages_to: int = 1):
         dev = resolve_device(device)
         return {"ssm": ssm_mod.init_ssm_state(cfg, batch, cfg.n_layers, device=dev),
                 "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
     @torch.no_grad()
-    def prefill(params, inputs: torch.Tensor, impl: Optional[str] = None):
+    def prefill(params, inputs: torch.Tensor, impl: Optional[str] = None,
+                axis_info: Optional[AxisInfo] = None):
         """Returns the last position's f32 logits and a cache of the f32
         SSM states ``{"ssm": (L, B, H, N, P), "conv": (L, B, Kc-1, C)}``.
-        No attention: ``impl`` is taken for the common signature."""
+        No attention and nothing split over ranks: ``impl`` and
+        ``axis_info`` are taken for the common signature (the states stay
+        replicated)."""
         h = _inputs_to_h(params, inputs, cfg)
         Bb, S = h.shape[:2]
         states = ssm_mod.init_ssm_state(cfg, Bb, cfg.n_layers, device=h.device)
@@ -326,8 +409,10 @@ def _ssm_lm(cfg: ModelConfig) -> Model:
         return logits, {"ssm": states, "lengths": _lengths(Bb, S, h.device)}
 
     @torch.no_grad()
-    def decode_step(params, cache, tokens: torch.Tensor, impl: Optional[str] = None):
-        """tokens (B,). Updates the cache's SSM states in place."""
+    def decode_step(params, cache, tokens: torch.Tensor, impl: Optional[str] = None,
+                    axis_info: Optional[AxisInfo] = None):
+        """tokens (B,). Updates the cache's SSM states in place (replicated
+        under ``axis_info``: the same numbers on every rank)."""
         h = embed(params["embed"], tokens[:, None], cfg)
         states = cache["ssm"]
         for i in range(cfg.n_layers):
@@ -336,9 +421,10 @@ def _ssm_lm(cfg: ModelConfig) -> Model:
         logits = unembed(params["embed"], h, cfg)[:, 0]
         return logits, {"ssm": dict(states), "lengths": cache["lengths"] + 1}
 
-    def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla"):
+    def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla", axis_info=None):
         """The cross-entropy; metrics ``ce``, ``acc``. No attention:
         ``impl`` is checked for the common signature."""
+        _no_sharded_training(axis_info)
         _train_impl(cfg, impl)
         h = _batch_h(params, batch, cfg)
         body = lambda p, x: (B.ssm_block_apply(p, x, cfg), _no_aux(x))  # noqa: E731
@@ -367,19 +453,21 @@ def _hybrid_lm(cfg: ModelConfig) -> Model:
         ln_f = torch.ones((cfg.d_model,), dtype=dtype or cfg.pdtype(), device=gen.device)
         return {"embed": {"table": table}, "mamba": mamba, "shared_attn": shared, "ln_f": ln_f}
 
-    def init_cache(batch: int, seq_len: int, device="cuda"):
+    def init_cache(batch: int, seq_len: int, device="cuda", pad_pages_to: int = 1):
         dev = resolve_device(device)
-        kv, lengths = attn.init_decode_cache(cfg, batch, seq_len, n_groups, device=dev)
+        kv, lengths = attn.init_decode_cache(cfg, batch, seq_len, n_groups, pad_pages_to=pad_pages_to,
+                                             device=dev)
         return {"ssm": ssm_mod.init_ssm_state(cfg, batch, cfg.n_layers, device=dev),
                 "kv": kv, "lengths": lengths}
 
     @torch.no_grad()
-    def prefill(params, inputs: torch.Tensor, impl: Optional[str] = None):
+    def prefill(params, inputs: torch.Tensor, impl: Optional[str] = None,
+                axis_info: Optional[AxisInfo] = None):
         """Each group's Mamba2 layers, then the shared block (flash
         attention), whose K/V become that group's paged KV layer. Returns
         the last position's f32 logits and ``{"ssm": (L, ...) states, "kv":
         n_groups paged layers, "lengths"}``; S a multiple of
-        ``kv_page_tokens``."""
+        ``kv_page_tokens``; no headroom page under ``axis_info``."""
         h = _inputs_to_h(params, inputs, cfg)
         Bb, S = h.shape[:2]
         states = ssm_mod.init_ssm_state(cfg, Bb, cfg.n_layers, device=h.device)
@@ -388,18 +476,21 @@ def _hybrid_lm(cfg: ModelConfig) -> Model:
             group = _layer(params["mamba"], g)
             for j in range(per_group):
                 h = _ssm_prefill_layer(_layer(group, j), h, states, g * per_group + j, cfg)
-            h, _, (k, v) = B.block_apply(params["shared_attn"], h, cfg, return_kv=True, impl=impl)
+            h, _, (k, v) = B.block_apply(params["shared_attn"], h, cfg, axis_info, return_kv=True, impl=impl)
             ks.append(k)
             vs.append(v)
         h = rmsnorm(h, params["ln_f"])
         logits = unembed(params["embed"], h[:, -1:], cfg)[:, 0]
-        cache = {"ssm": states, "kv": _paged_cache(cfg, ks, vs), "lengths": _lengths(Bb, S, h.device)}
+        cache = {"ssm": states, "kv": _paged_cache(cfg, ks, vs, _pages_extra(axis_info)),
+                 "lengths": _lengths(Bb, S, h.device)}
         return logits, cache
 
     @torch.no_grad()
-    def decode_step(params, cache, tokens: torch.Tensor, impl: Optional[str] = None):
+    def decode_step(params, cache, tokens: torch.Tensor, impl: Optional[str] = None,
+                    axis_info: Optional[AxisInfo] = None):
         """tokens (B,). SSM states, pools (and int8 scales) updated in
-        place; ``page_pos`` re-stacked."""
+        place; ``page_pos`` re-stacked. Under ``axis_info`` the pools are
+        striped and the SSM states replicated."""
         h = embed(params["embed"], tokens[:, None], cfg)
         lengths, kv, states = cache["lengths"], cache["kv"], cache["ssm"]
         page_pos = []
@@ -407,16 +498,17 @@ def _hybrid_lm(cfg: ModelConfig) -> Model:
             group = _layer(params["mamba"], g)
             for j in range(per_group):
                 h = _ssm_decode(_layer(group, j), h, states, g * per_group + j, cfg)
-            h, pp = _attn_decode(params["shared_attn"], h, kv, g, lengths, cfg, impl)
+            h, pp = _attn_decode(params["shared_attn"], h, kv, g, lengths, cfg, impl, axis_info)
             page_pos.append(pp)
         h = rmsnorm(h, params["ln_f"])
         logits = unembed(params["embed"], h, cfg)[:, 0]
         return logits, {"ssm": dict(states), "kv": dict(kv, page_pos=torch.stack(page_pos)),
                         "lengths": lengths + 1}
 
-    def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla"):
+    def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla", axis_info=None):
         """Each group's Mamba2 layers (remat groups within it), then the
         shared block under its own checkpoint; metrics ``ce``, ``acc``."""
+        _no_sharded_training(axis_info)
         impl = _train_impl(cfg, impl)
         h = _batch_h(params, batch, cfg)
         flat = _tree_map(lambda _, t: t.reshape(cfg.n_layers, *t.shape[2:]), params["mamba"])
@@ -448,15 +540,17 @@ def _encdec_lm(cfg: ModelConfig) -> Model:
         return {"embed": {"table": table}, "encoder": encoder, "decoder": decoder,
                 "ln_enc": norm(), "ln_dec": norm()}
 
-    def init_cache(batch: int, seq_len: int, device="cuda"):
+    def init_cache(batch: int, seq_len: int, device="cuda", pad_pages_to: int = 1):
         dev = resolve_device(device)
-        self_kv, lengths = attn.init_decode_cache(cfg, batch, seq_len, n_dec, device=dev)
-        cross_kv, _ = attn.init_decode_cache(cfg, batch, seq_len, n_dec, device=dev)
+        self_kv, lengths = attn.init_decode_cache(cfg, batch, seq_len, n_dec, pad_pages_to=pad_pages_to,
+                                                  device=dev)
+        cross_kv, _ = attn.init_decode_cache(cfg, batch, seq_len, n_dec, pad_pages_to=pad_pages_to, device=dev)
         return {"self_kv": self_kv, "cross_kv": cross_kv, "lengths": lengths,
                 "enc_len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
     @torch.no_grad()
-    def prefill(params, inputs: Dict[str, torch.Tensor], impl: Optional[str] = None):
+    def prefill(params, inputs: Dict[str, torch.Tensor], impl: Optional[str] = None,
+                axis_info: Optional[AxisInfo] = None):
         """Encode ``inputs["enc_embeds"]`` (B, S_enc, d), S_enc a multiple of
         ``kv_page_tokens`` (non-causal self-attention), and lay each decoder
         layer's cross K/V (no RoPE) out as pages with one headroom page.
@@ -464,17 +558,19 @@ def _encdec_lm(cfg: ModelConfig) -> Model:
         their self K/V become the self pools and the logits are the last
         position's. Without, the self cache is empty (``lengths`` 0) and the
         logits are zeros. The cache is ``{"self_kv", "cross_kv", "lengths",
-        "enc_len"}``."""
+        "enc_len"}``; under ``axis_info`` the prefilled pools have no
+        headroom page."""
+        extra = _pages_extra(axis_info)
         h = inputs["enc_embeds"].to(cfg.cdtype())
         for i in range(n_enc):
-            h, _ = B.block_apply(_layer(params["encoder"], i), h, cfg, causal=False, impl=impl)
+            h, _ = B.block_apply(_layer(params["encoder"], i), h, cfg, axis_info, causal=False, impl=impl)
         enc_out = rmsnorm(h, params["ln_enc"])
         Bb, S_enc = enc_out.shape[:2]
         dev = enc_out.device
         cross = params["decoder"]["cross"]
         ks = [attn.project(enc_out, cross["wk"][i], cfg.cdtype()) for i in range(n_dec)]
         vs = [attn.project(enc_out, cross["wv"][i], cfg.cdtype()) for i in range(n_dec)]
-        cross_kv = _paged_cache(cfg, ks, vs)
+        cross_kv = _paged_cache(cfg, ks, vs, extra)
         del ks, vs
 
         tokens = inputs.get("tokens")
@@ -488,7 +584,7 @@ def _encdec_lm(cfg: ModelConfig) -> Model:
                 h, (k, v) = B.dec_block_apply(_layer(params["decoder"], i), h, enc_out, cfg, impl=impl)
                 ks.append(k)
                 vs.append(v)
-            self_kv = _paged_cache(cfg, ks, vs)
+            self_kv = _paged_cache(cfg, ks, vs, extra)
             h = rmsnorm(h, params["ln_dec"])
             logits = unembed(params["embed"], h[:, -1:], cfg)[:, 0]
             lengths = _lengths(Bb, tokens.shape[1], dev)
@@ -496,26 +592,28 @@ def _encdec_lm(cfg: ModelConfig) -> Model:
                         "enc_len": _lengths(Bb, S_enc, dev)}
 
     @torch.no_grad()
-    def decode_step(params, cache, tokens: torch.Tensor, impl: Optional[str] = None):
+    def decode_step(params, cache, tokens: torch.Tensor, impl: Optional[str] = None,
+                    axis_info: Optional[AxisInfo] = None):
         """tokens (B,). Appends each row's token to the self pools in place;
         the cross pools are only read. Only the self cache's ``page_pos`` is
-        re-stacked."""
+        re-stacked. Under ``axis_info`` both pools are striped."""
         h = embed(params["embed"], tokens[:, None], cfg)
         lengths, self_kv, cross_kv = cache["lengths"], cache["self_kv"], cache["cross_kv"]
         page_pos = []
         for i in range(n_dec):
             h, new = B.dec_block_decode(
                 _layer(params["decoder"], i), h, {n: t[i] for n, t in self_kv.items()},
-                {n: t[i] for n, t in cross_kv.items()}, lengths, cache["enc_len"], cfg, impl=impl)
+                {n: t[i] for n, t in cross_kv.items()}, lengths, cache["enc_len"], cfg, axis_info, impl=impl)
             page_pos.append(new["page_pos"])
         h = rmsnorm(h, params["ln_dec"])
         logits = unembed(params["embed"], h, cfg)[:, 0]
         return logits, dict(cache, self_kv=dict(self_kv, page_pos=torch.stack(page_pos)), lengths=lengths + 1)
 
-    def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla"):
+    def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla", axis_info=None):
         """Encode ``batch["enc_embeds"]``, then the decoder over
         ``batch["tokens"]``, each decoder layer under its own checkpoint;
         metrics ``ce``, ``acc``."""
+        _no_sharded_training(axis_info)
         impl = _train_impl(cfg, impl)
         enc = lambda p, x: B.block_apply(p, x, cfg, causal=False, impl=impl)  # noqa: E731
         h, _ = B.scan_apply(B.unstack(params["encoder"], n_enc), batch["enc_embeds"].to(cfg.cdtype()), enc, cfg)

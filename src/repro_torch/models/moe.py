@@ -10,8 +10,18 @@ gate. No step reads a tensor on the host: shapes, the capacity and every
 index come from static shapes or stay on the device, so a decode step stays
 capturable by a CUDA graph.
 
-Expert parallelism over several cards (the JAX package's ``shard_map``
-branch) is not ported.
+Under an ``axis_info`` (the JAX package's ``shard_map`` branch) the expert
+weights are this rank's shard (:func:`repro_torch.parallel.sharding.shard_params`),
+chosen by whether the experts divide the model axis:
+
+* **EP** (``E % tp == 0``): the rank owns ``E/tp`` whole experts, the
+  experts ``[axis_index(model) * E/tp, ...)``, with full ``d_ff``;
+* **expert-TP**: the rank holds every expert's ``d_ff/tp`` columns.
+
+Both run the same local dispatch; the partial outputs are summed over the
+model axis. Tokens are split over the batch axes when they divide them
+(else every rank routes all of them, as the JAX package's tiny decode
+batches), and the output is regathered on every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +32,8 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import dense_init
+from repro_torch.parallel import collectives
+from repro_torch.parallel.axisinfo import AxisInfo
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig):
@@ -106,15 +118,54 @@ def _moe_local(
     return out.to(x.dtype), aux
 
 
-def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig, axis_info: Optional[object] = None):
-    """MoE feed-forward on one device. Returns (out (B, S, d), aux scalar)."""
-    if axis_info is not None:
-        raise NotImplementedError(
-            "expert parallelism over several devices is not ported yet (ROADMAP Queue 1, item 6)"
-        )
+def use_expert_parallel(cfg: ModelConfig, tp: int) -> bool:
+    """EP when the experts divide the model axis, else per-expert ffn TP
+    when ``d_ff`` does; neither raises."""
+    if cfg.n_experts % tp == 0:
+        return True
+    if cfg.d_ff % tp == 0:
+        return False
+    raise ValueError(f"neither experts ({cfg.n_experts}) nor d_ff ({cfg.d_ff}) divide tp={tp}")
+
+
+def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisInfo] = None):
+    """MoE feed-forward. Returns (out (B, S, d), aux scalar).
+
+    With ``axis_info``: this rank routes its block of the ``B*S`` tokens
+    over the batch axes (all of them when they do not divide), through its
+    experts (EP) or its ffn columns (expert-TP); the outputs are summed
+    over the model axis and regathered over the batch axes in one
+    all-reduce (:func:`collectives.regather`), and ``aux`` is averaged over
+    the batch axes (it is the same on every model rank: the router is
+    replicated)."""
     B, S, d = x.shape
+    xf = x.reshape(B * S, d)
+    if axis_info is None:
+        out, aux = _moe_local(
+            xf, params["router"], params["w1"], params["wg"], params["w2"], cfg,
+            first_expert=0, n_local_experts=cfg.n_experts,
+        )
+        return out.reshape(B, S, d), aux
+    mesh, ma = axis_info.mesh, axis_info.model_axis
+    tp = mesh.shape[ma]
+    ep = use_expert_parallel(cfg, tp)
+    n_local = cfg.n_experts // tp if ep else cfg.n_experts
+    want = (n_local, d, cfg.d_ff if ep else cfg.d_ff // tp)
+    if tuple(params["w1"].shape) != want:
+        raise ValueError(f"moe_ffn: w1 {tuple(params['w1'].shape)} is not this rank's shard {want} "
+                         "(repro_torch.parallel.sharding.shard_params)")
+    batch_axes = axis_info.batch_axes
+    n_batch = collectives.axis_size(batch_axes, mesh)
+    if (B * S) % n_batch:
+        batch_axes, n_batch = (), 1  # tiny decode batches: replicate tokens, keep EP/TP
+    rows = B * S // n_batch
+    i = collectives.axis_index(batch_axes, mesh) if batch_axes else 0
+    first = collectives.axis_index(ma, mesh) * n_local if ep else 0
     out, aux = _moe_local(
-        x.reshape(B * S, d), params["router"], params["w1"], params["wg"], params["w2"], cfg,
-        first_expert=0, n_local_experts=cfg.n_experts,
+        xf[i * rows:(i + 1) * rows], params["router"], params["w1"], params["wg"], params["w2"], cfg,
+        first_expert=first, n_local_experts=n_local,
     )
+    out = collectives.regather(out, batch_axes, mesh, sum_names=(ma,))
+    if batch_axes:
+        aux = collectives.pmean(aux, batch_axes, mesh)
     return out.reshape(B, S, d), aux

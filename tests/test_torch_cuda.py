@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card;
 blob mode's pages through the card; the Mamba2 layers, the ssm, hybrid and
 encoder-decoder smoke models, the int8 KV path, the rmsnorm autograd
-Function and a smoke train step on the card against the CPU.
+Function and a smoke train step on the card against the CPU; the paged
+kernel on a pool striped over two spawned ranks against the unsharded
+kernel.
 
 Every test here is marked ``cuda`` and skips where there is no card. On a
 machine with one (and ``nvcc``; the kernels build on first use):
@@ -498,3 +500,53 @@ def test_sky_detector_on_the_card_matches_numpy(dev):
     assert det.tensor_device.type == "cuda" and len(det.spans) == 1
     e0, e1, e2 = det.spans[0]
     assert 0 < e0.elapsed_time(e1) and 0 < e1.elapsed_time(e2)
+
+
+# ------------------------------ the pool striped over ranks ------------------------------
+def _sharded_paged_rank(ai, chosen, case):
+    """This rank's stripe of the pool through ``ops.paged_attention`` with
+    the page axes (kernel, then the combine over gloo or NCCL)."""
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.axisinfo import page_offset_in_shard
+
+    q, pool_k, pool_v, tables, page_pos, lengths = (torch.from_numpy(a).to(chosen.device) for a in case)
+    q, pool_k, pool_v = (t.view(torch.bfloat16) for t in (q, pool_k, pool_v))
+    pl = pool_k.shape[0] // ai.n_page_shards
+    off = page_offset_in_shard(ai.page_axes, pl, ai.mesh)
+    paged_attention_cuda.launches = 0
+    out = ops.paged_attention(q, pool_k[off:off + pl], pool_v[off:off + pl], tables, page_pos, lengths,
+                              page_offset=off, axis_names=ai.page_axes, mesh=ai.mesh)
+    torch.cuda.synchronize()
+    return {"out": out.float().cpu(), "launches": paged_attention_cuda.launches, "backend": chosen.backend}
+
+
+def test_sharded_paged_attention_on_the_card_matches_the_unsharded_kernel(dev):
+    """llama3.2-1b's decode shape (8 rows of 2048-2080 tokens, 32 heads over
+    8 kv-heads of 64, bf16 pool of 8 x 33 pages) striped over 2 ranks on
+    the card: each rank launches the kernel once on its stripe (a
+    ``page_offset`` of 0 or 132) and the combined output matches the
+    unsharded kernel within 1e-2: the ranks' f32 (o, l) are merged in
+    another order than the kernel's splits, and the bf16 output may round
+    one step (2^-8 of a value under 2) the other way."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import mesh as launch_mesh
+
+    _build.build_all()  # once here: each spawned rank only loads the libraries
+    rng = np.random.default_rng(20)
+    B, H, K, D, T, R = 8, 32, 8, 64, 64, 33
+    bf16 = lambda a: torch.from_numpy(a).to(torch.bfloat16).view(torch.int16).numpy()  # noqa: E731
+    q = bf16(rng.standard_normal((B, H, D), dtype=np.float32))
+    pool_k = bf16(rng.standard_normal((B * R, T, K, D), dtype=np.float32))
+    pool_v = bf16(rng.standard_normal((B * R, T, K, D), dtype=np.float32))
+    tables = rng.permutation(B * R).astype(np.int32).reshape(B, R)  # rows straddle the ranks
+    page_pos = np.tile(np.arange(R, dtype=np.int32) * T, (B, 1))
+    lengths = np.array([2048, 2049, 2055, 2060, 2066, 2071, 2075, 2080], np.int32)
+    case = (q, pool_k, pool_v, tables, page_pos, lengths)
+    res = launch_mesh.spawn(_sharded_paged_rank, 2, (case,), model_parallel=2, device="cuda", timeout_s=300)
+    args = [torch.from_numpy(a).to(dev) for a in case]
+    args[:3] = [t.view(torch.bfloat16) for t in args[:3]]
+    want = ops.paged_attention(*args)
+    for r in res:
+        assert r["launches"] == 1 and r["backend"] == ("nccl" if torch.cuda.device_count() >= 2 else "gloo")
+        close(r["out"], want, 1e-2)
+        assert torch.equal(r["out"], res[0]["out"])

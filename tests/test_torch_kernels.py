@@ -361,9 +361,9 @@ def test_flash_launch_plan_packs_the_heads_of_a_kv_head():
     assert f32.grid == (12, 32, 1) and f32.threads == 128
 
 
-def test_not_ported_branches_raise():
-    """The split-K combine across pool shards is still to port; an int8
-    pool without its scales is refused."""
+def test_refused_inputs_raise():
+    """An int8 pool without its scales is refused, and so is a sharded call
+    (``axis_names``) without the mesh that names its axes."""
     x = torch.zeros((1, 1, 1, 4))
     pool = torch.zeros((1, 1, 1, 4), dtype=torch.int8)
     t = torch.zeros((1, 1), dtype=torch.int32)
@@ -371,8 +371,31 @@ def test_not_ported_branches_raise():
         ops.paged_attention(x[0], pool, pool, t, t, t[0])
     with pytest.raises(ValueError, match="scale"):
         ops.paged_update(pool, pool, t, t, t[0], x[0], x[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.paged_attention(x[0], x, x, t, t, t[0], axis_names=("model",))
+    with pytest.raises(ValueError, match="mesh"):
+        ops.paged_attention(x[0], x, x, t, t, t[0] + 1, axis_names=("model",))
+
+
+@pytest.mark.parametrize("impl", [None, "ref"])
+def test_sharded_call_on_one_rank_is_the_unsharded_call(impl):
+    """The split-K combine over axes of one rank sends nothing and changes
+    nothing: the kernel path (plain on the CPU) and ``impl="ref"`` (the
+    plain partials, never the unsharded oracle, as the JAX rule) equal the
+    unsharded kernel path. Across ranks: tests/test_torch_parallel.py."""
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.axisinfo import Mesh
+
+    B, S, T, H, K, D = 3, 128, 16, 8, 2, 64
+    arrays = paged_inputs(8, B, S, T, H, K, D, "float32")
+    arrays[-1][1] = 0  # a row with no token: o stays 0
+    q, pool_k, pool_v, tables, page_pos, lengths = (torch.from_numpy(a) for a in arrays)
+    mesh = Mesh((1, 1), ("data", "model"))
+    calls = collectives.stats["calls"]
+    got = ops.paged_attention(q, pool_k, pool_v, tables, page_pos, lengths, axis_names=("data", "model"),
+                              mesh=mesh, impl=impl)
+    want = ops.paged_attention(q, pool_k, pool_v, tables, page_pos, lengths)
+    assert collectives.stats["calls"] == calls
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert float(got[1].abs().max()) == 0.0
 
 
 # ------------------------------ int8 KV ------------------------------

@@ -333,6 +333,8 @@ def test_port_imports_no_jax():
         "import repro_torch, repro_torch.serving.engine, repro_torch.launch.serve\n"
         "import repro_torch.convert, repro_torch.kernels.ops, repro_torch.configs\n"
         "import repro_torch.core, repro_torch.serving.blob_kv, repro_torch.models.ssm\n"
+        "import repro_torch.parallel.axisinfo, repro_torch.parallel.collectives\n"
+        "import repro_torch.parallel.sharding, repro_torch.launch.mesh\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"

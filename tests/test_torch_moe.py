@@ -103,12 +103,31 @@ def test_moe_capacity_keeps_the_first_tokens_of_an_expert():
     np.testing.assert_array_equal(out[C:], 0.0)
 
 
-def test_expert_parallel_is_not_ported():
+def test_expert_parallel_takes_this_ranks_experts():
+    """Under an axis_info the layer takes this rank's shard and refuses the
+    whole expert stack; on a mesh of one rank its shard is every expert and
+    the layer is the single-device one, bit for bit. Across ranks:
+    tests/test_torch_sharded_decode.py."""
+    from repro_torch.parallel.axisinfo import AxisInfo, Mesh
+    from repro_torch.parallel.sharding import shard_params
+
     _, tcfg = configs("mixtral-8x7b")
-    gen = torch.Generator().manual_seed(0)
-    x = torch.zeros((1, 4, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 6"):
-        moe.moe_ffn(moe.moe_init(gen, tcfg), x, tcfg, axis_info=object())
+    params = moe.moe_init(torch.Generator().manual_seed(0), tcfg)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 8, tcfg.d_model), dtype=np.float32))
+    one = AxisInfo(Mesh((1, 1), ("data", "model")), ("data",))
+    local = shard_params({"blocks": {"ffn": {k: v[None] for k, v in params.items()}}}, tcfg, one)
+    local = {k: v[0] for k, v in local["blocks"]["ffn"].items()}
+    got, aux = moe.moe_ffn(local, x, tcfg, one)
+    want, want_aux = moe.moe_ffn(params, x, tcfg)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(aux, want_aux, rtol=0, atol=0)
+    two = AxisInfo(Mesh((1, 2), ("data", "model")), ("data",))
+    with pytest.raises(ValueError, match="shard"):
+        moe.moe_ffn(params, x, tcfg, two)
+    assert moe.use_expert_parallel(tcfg, 2) and not moe.use_expert_parallel(
+        dataclasses.replace(tcfg, n_experts=3), 2)
+    with pytest.raises(ValueError, match="divide"):
+        moe.use_expert_parallel(dataclasses.replace(tcfg, n_experts=3, d_ff=127), 2)
 
 
 def _chip_smoke():
