@@ -160,11 +160,33 @@ JAX package), and it:
     ``mistral-large-123b`` cut to 2 layers with int8 pools and scales
     striped, as (a). Prints each rank's median decode step, time and bytes
     in the all-reduces a step, launches and peak memory;
-16. prints a JSON line with each kernel's launches, error, times and grid at
+16. trains across ranks (``train_sharded_phase``): the oracles first, in
+    this process, then four spawned ranks of a ``(data 2, model 2)`` mesh
+    (gloo on the one card). (a) ``llama3_2-1b`` at full width cut to 2
+    layers, 3 steps of 8 x 2048 tokens from ``TokenPipeline`` (grad_accum
+    4: A = 4, one row a rank a microbatch), held to the same steps
+    unsharded: the losses, the first step's gradients and the moments
+    after it, leaf by leaf; (b) ``mixtral-8x7b`` at full width cut to 1
+    layer, capacity factor 4, 4 experts a rank, drawn one rank at a time,
+    one step of 2 x 2048 tokens held to the JAX package's sharded rule run
+    on one device (each data shard's rows routed alone); in both the
+    replicas' state bit-equal after every step; (c) ``compressed_pod_mean``
+    over a ``(pod 2, data 2)`` mesh on (a)'s leaf shapes with pods that
+    differ: each mean within one quantization step of the exact pod mean,
+    each residual exactly ``g - q * scale`` rounded once, means bit-equal
+    across ranks, 50 error-feedback steps converging; (d) the launcher with
+    ``model_parallel=2`` on the smoke config: the loss falls over 30
+    steps, a crash at step 14 and rerun ends on the uninterrupted run's
+    loss, the step-30 checkpoint restored onto ``(data 4, model 1)`` is
+    the final state bit for bit. Prints each rank's median step, the
+    gradient all-reduce's calls, bytes and ms a step, peak memory and the
+    card's free memory (``mem_get_info``) after the first step; checks
+    that neither kernel ran;
+17. prints a JSON line with each kernel's launches, error, times and grid at
     the main-path shape (and its times at the danube, mixtral, zamba2,
-    mistral-large and seamless shapes, and its launches in steps 5-14 and
-    in step 15's sharded decode steps, each rank's) and
-    the measures of steps 11-15, and, as the last line, ``{"ok": true,
+    mistral-large and seamless shapes, and its launches in steps 5-14, in
+    step 15's sharded decode steps and in step 16, each rank's) and
+    the measures of steps 11-16, and, as the last line, ``{"ok": true,
     "device": {...}}``.
 
 Any failure exits nonzero before the last line is printed.
@@ -2865,6 +2887,506 @@ def sharded_phase(card) -> dict:
     return out
 
 
+# ------------------------------ step 16: training across ranks ------------------------------
+TRAIN_SHARD_LAYERS = 2  # of llama3_2-1b's 16: four ranks share the card, each holding f32 params, AdamW
+# moments and f32 gradients (384 M parameters x 16 B = 6.1 GB) beside one 2048-token row's activations
+TRAIN_SHARD_ROWS, TRAIN_SHARD_STEPS = 8, 3  # 8 x 2048 tokens a step; grad_accum 4 over 2 data shards: A = 4
+MOE_TRAIN_LAYERS = 1  # of mixtral-8x7b's 32: one layer's f32 experts are 5.6 GB, 2.8 GB a model rank
+MOE_TRAIN_ROWS = 2  # 2 x 2048 tokens, one row a data shard (A = 1): a rank's state is about 14 GB
+MOE_TRAIN_CAPACITY = 4.0  # as step 15 (b): every assignment gets a slot, so no run drops any
+# bf16 compute: the sharded loss against the unsharded (or, for the MoE, the shard-by-shard
+# single-device) oracle, relative; a leaf's gradient (and moment), max |d| over max |oracle|
+TRAIN_SHARD_LOSS_TOL = 2e-3
+TRAIN_SHARD_GRAD_TOL = 2e-2
+TRAIN_SHARD_DEADLINE_S = 600.0  # every rank and every collective of step 16 ends by this deadline
+POD_EF_STEPS, POD_EF_VALUES, POD_EF_RTOL = 50, (0.3017, 0.2), 2e-3  # tests/test_grad_compress.py's rule
+TRAIN_SHARD_DIR = ROOT / "build" / "train_sharded"  # the oracles' gradients, read by the ranks, then removed
+TRAIN_SHARD_DEVICE = "cuda"  # "cpu" rehearses step 16 without a card
+
+
+def device_digest(t: torch.Tensor, chunk: int = 1 << 24) -> tuple:
+    """Two integer sums of a tensor's bit patterns (plain and weighted by
+    position), on the device, a chunk at a time: equal tensors give equal
+    digests, and a differing bit changes them."""
+    words = t.detach().contiguous().reshape(-1).view(torch.int32 if t.element_size() == 4 else torch.int16)
+    plain = weighted = 0
+    for a in range(0, words.numel(), chunk):
+        part = words[a:a + chunk].long()
+        w = torch.arange(a, a + part.numel(), device=part.device) % 65521 + 1
+        plain += int(part.sum())
+        weighted += int((part * w).sum())
+    return plain, weighted
+
+
+def _state_digests(params, opt_state) -> list:
+    return [device_digest(t) for t in _paths(params).values()] + [
+        device_digest(t) for part in ("m", "v") for t in _paths(opt_state[part]).values()]
+
+
+def _leaf_err(got: torch.Tensor, want: torch.Tensor, dev) -> float:
+    """max |got - want| over max |want|, on ``dev``."""
+    got, want = got.to(dev, torch.float32), want.to(dev, torch.float32)
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _pipeline_batches(vocab: int, rows: int, steps: int, seed: int = 0) -> list:
+    """``steps`` global batches of ``rows`` x 2048 tokens that
+    ``TokenPipeline`` reads from the bigram corpus in a ``Cluster`` blob."""
+    from repro_torch.core import Cluster
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline, write_token_corpus
+    from repro_torch.launch.train import bigram_corpus, corpus_tokens
+
+    cluster = Cluster(n_data_providers=4, n_metadata_providers=4)
+    try:
+        n = corpus_tokens(rows, TRAIN_SEQ)
+        pipe = TokenPipeline(write_token_corpus(cluster.session(), bigram_corpus(vocab, n, np.random.default_rng(seed))),
+                             n, PipelineConfig(batch_per_rank=rows, seq_len=TRAIN_SEQ, n_ranks=1, rank=0, seed=seed))
+        return [pipe.batch_at(s) for s in range(steps)]
+    finally:
+        cluster.close()
+
+
+def _train_shard_configs() -> tuple:
+    from repro_torch.configs import get_config
+
+    llama = dataclasses.replace(get_config("llama3_2-1b"), n_layers=TRAIN_SHARD_LAYERS)
+    mixtral = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=MOE_TRAIN_LAYERS,
+                                  capacity_factor=MOE_TRAIN_CAPACITY)
+    return llama, mixtral
+
+
+def _shard_opt_cfg():
+    from repro_torch.train import AdamWConfig
+
+    return AdamWConfig(lr=TRAIN_LR, total_steps=TRAIN_SHARD_STEPS, warmup_steps=1)
+
+
+class _GradTap:
+    """Wraps the trainer's AdamW so that each step's gradients (the f32
+    tensors the update reads) are kept; ``restore()`` puts it back."""
+
+    def __init__(self):
+        from repro_torch.train import trainer
+
+        self.trainer, self.inner, self.grads = trainer, trainer.adamw_update, []
+        trainer.adamw_update = self
+
+    def __call__(self, params, grads, state, cfg, gnorm=None):
+        self.grads.append(grads)
+        return self.inner(params, grads, state, cfg, gnorm=gnorm)
+
+    def restore(self):
+        self.trainer.adamw_update = self.inner
+
+
+def llama_train_oracle(cfg, dev, batches, path) -> list:
+    """Step 16 (a)'s oracle: the same steps unsharded, on this process's
+    card; the first step's gradients and the moments after it saved to
+    ``path`` on the host; returns the losses."""
+    from repro_torch.models.lm import build_model
+    from repro_torch.train import init_train_state, make_train_step
+
+    model = build_model(cfg)
+    params, opt_state = init_train_state(model, seed=0, device=dev)
+    step = make_train_step(model, cfg, _shard_opt_cfg())
+    tap = _GradTap()
+    losses = []
+    try:
+        for i, b in enumerate(batches):
+            params, opt_state, metrics = step(params, opt_state, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+            losses.append(float(metrics["loss"]))
+            if i == 0:  # the moments after step 1 are a fixed function of the gradients
+                saved = {"grads1": {"/".join(p): t.cpu() for p, t in _paths(tap.grads[0]).items()}}
+                saved.update({part: {"/".join(p): t.cpu() for p, t in _paths(opt_state[part]).items()}
+                              for part in ("m", "v")})
+            tap.grads.clear()
+    finally:
+        tap.restore()
+    torch.save(saved, path)
+    return losses
+
+
+def moe_train_oracle(cfg, dev, batch, path) -> float:
+    """Step 16 (b)'s oracle, the JAX package's sharded rule on one device:
+    the single-device loss of each data shard's rows of each microbatch
+    (its own capacity and aux), the shares averaged over the shards and the
+    microbatches as the ranks sum them; the gradients saved to ``path``."""
+    from repro_torch.models.lm import build_model
+    from repro_torch.train.trainer import _requires_grad, n_microbatches
+    from repro_torch.train.optimizer import leaves
+
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    n_data = RANKS // RANKS_MODEL
+    A = n_microbatches(MOE_TRAIN_ROWS, cfg.grad_accum, n_data)
+    rows = MOE_TRAIN_ROWS // (A * n_data)
+    names = ["/".join(p) for p in _paths(params)]
+    total, loss = None, 0.0
+    for a in range(A):
+        for i in range(n_data):
+            lo = (a * n_data + i) * rows
+            part = {k: torch.from_numpy(v[lo:lo + rows]).to(dev) for k, v in batch.items()}
+            tracked = _requires_grad(params)
+            l, _ = model.train_loss(tracked, part)
+            g = torch.autograd.grad(l, leaves(tracked))
+            loss += float(l.detach()) / (A * n_data)
+            total = [x.float() for x in g] if total is None else [t.add_(x.float()) for t, x in zip(total, g)]
+            del g, tracked
+    k = torch.full((), A * n_data, dtype=torch.float32, device=dev)
+    torch.save({"grads1": {n: (t / k).cpu() for n, t in zip(names, total)}}, path)
+    return loss
+
+
+def _timed_reduce(dev, out: dict):
+    """Wrap ``trainer.reduce_gradients``: each call's host ms, synchronised
+    before and after, appended to ``out["ms"]``, and its all-reduces and
+    their bytes (``collectives.stats`` before and after) added to
+    ``out["calls"]`` and ``out["bytes"]``."""
+    from repro_torch.parallel import collectives
+    from repro_torch.train import trainer
+
+    inner = trainer.reduce_gradients
+
+    def run(grads, axis_info):
+        before = dict(collectives.stats)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        inner(grads, axis_info)
+        torch.cuda.synchronize(dev)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        for k in ("calls", "bytes"):
+            out[k] += collectives.stats[k] - before[k]
+
+    trainer.reduce_gradients = run
+    return lambda: setattr(trainer, "reduce_gradients", inner)
+
+
+def _sharded_train_cell(cfg, ai, dev, batches, oracle_path, in_turn: bool) -> dict:
+    """Train ``cfg`` across the ranks on the global ``batches``: each step's
+    host ms (synchronised), loss, gradient all-reduce calls, bytes and ms,
+    the state's digests after each step, the memory after the first step,
+    and each leaf's error against the oracle's first-step gradients (and
+    the moments after that step, when saved)."""
+    import torch.distributed as dist
+
+    from repro_torch.convert import param_shapes
+    from repro_torch.models.lm import build_model
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import adamw_init, make_train_step, trainer
+
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for r in range(ai.mesh.size if in_turn else 1):  # one rank at a time draws the whole model
+        if not in_turn or r == ai.mesh.rank:
+            params = shd.shard_params(model.init(seed=0, device=dev), cfg, ai, copy=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if in_turn:
+            dist.barrier()
+    opt_state = adamw_init(params)
+    step = make_train_step(model, cfg, _shard_opt_cfg(), axis_info=ai)
+    oracle = torch.load(oracle_path, mmap=True)  # read leaf by leaf after the steps
+    reduce = {"ms": [], "calls": 0, "bytes": 0}
+    untime = _timed_reduce(dev, reduce)
+    tap = _GradTap()
+    out = {"steps_ms": [], "losses": [], "digests": [], "grad_calls": [], "grad_bytes": []}
+    try:
+        for i, b in enumerate(batches):
+            reduce.update(calls=0, bytes=0)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            params, opt_state, metrics = step(params, opt_state, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+            torch.cuda.synchronize(dev)
+            out["steps_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["losses"].append(float(metrics["loss"]))
+            out["grad_calls"].append(reduce["calls"])
+            out["grad_bytes"].append(reduce["bytes"])
+            if i == 0:
+                free, total = torch.cuda.mem_get_info(dev)
+                out.update(peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, card_free_gib=free / 2**30,
+                           card_total_gib=total / 2**30)
+                # the card holds the state only; the moments after step 1 are a fixed function of the gradients
+                mine = {"grads1": {p: t.cpu() for p, t in _paths(tap.grads[0]).items()}}
+                mine.update({part: {p: t.cpu() for p, t in _paths(opt_state[part]).items()}
+                             for part in ("m", "v") if part in oracle})
+            tap.grads.clear()
+            out["digests"].append(_state_digests(params, opt_state))
+    finally:
+        tap.restore()
+        untime()
+    out["reduce_ms"] = reduce["ms"]
+    specs = _paths(shd.local_param_specs(param_shapes(cfg), cfg, ai))
+    errs, worst = {}, {}
+    for part in mine:
+        errs[part] = 0.0
+        for p, t in mine[part].items():
+            want = oracle[part]["/".join(p)]
+            if len(specs[p]):
+                want = shd.shard_leaf(want, specs[p], ai)
+            e = _leaf_err(t, want, dev)
+            if e > errs[part]:
+                errs[part], worst[part] = e, "/".join(p)
+    out.update(errs=errs, worst_leaf=worst, expert_bytes=sum(
+        t.numel() * t.element_size() for p, t in _paths(params).items() if len(specs[p])))
+    print(f"  [rank {ai.mesh.rank}] steps {[round(x, 1) for x in out['steps_ms']]} ms, losses {out['losses']}, "
+          f"gradient all-reduce {[round(x, 1) for x in out['reduce_ms']]} ms, peak {out['peak_gib']:.2f} GiB, card free "
+          f"{out['card_free_gib']:.2f} GiB, errors {errs}", flush=True)
+    del params, opt_state, mine, oracle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pod_mean_cell(cfg, dev) -> dict:
+    """Step 16 (c): ``compressed_pod_mean`` over a (pod 2, data 2) mesh of
+    the same four ranks, on a gradient tree with ``cfg``'s leaf shapes whose
+    values differ between the pods (the same within a pod, as after the
+    data-parallel sum)."""
+    from repro_torch.convert import param_shapes
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.train.grad_compress import compressed_pod_mean, ef_init
+
+    ai = launch_mesh.make_axis_info(launch_mesh.make_mesh((2, 2, 1), ("pod", "data", "model")))
+    pod = ai.mesh.coords()["pod"]
+    shapes = list(_paths(param_shapes(cfg)).items())
+
+    def grad(p: int, j: int) -> torch.Tensor:
+        gen = torch.Generator(device=dev).manual_seed(1000 * p + j)
+        return torch.randn(shapes[j][1], generator=gen, device=dev) * (1e-3 * (1 + j % 5))
+
+    g = {"/".join(path): grad(pod, j) for j, (path, _) in enumerate(shapes)}
+    err = ef_init(g)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    mean, new_err = compressed_pod_mean(g, err, ai, None)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    inv127 = torch.full((), 1 / 127, dtype=torch.float32, device=dev)
+    worst_step, residual_exact = 0.0, True
+    for j, (path, _) in enumerate(shapes):
+        name = "/".join(path)
+        g0, g1 = grad(0, j), grad(1, j)
+        scale = torch.maximum(g0.abs().max(), g1.abs().max()) * inv127
+        mine = g0 if pod == 0 else g1
+        q = torch.clamp(torch.round(mine / scale), -127, 127)
+        residual_exact &= bool(torch.equal(_rounded_once(mine, q, scale), new_err[name]))
+        worst_step = max(worst_step, float(((mean[name] - (g0 + g1) / 2).abs().max() / scale)))
+        del g0, g1, q
+    digests = [device_digest(t) for t in _paths(mean).values()]
+    err_digests = [device_digest(t) for t in _paths(new_err).values()]
+    nbytes = sum(t.numel() for t in g.values()) * 4
+    del g, err, mean, new_err
+    gc.collect()
+    torch.cuda.empty_cache()
+    # error feedback over steps: a constant gradient a pod, the mean of the outputs
+    c = POD_EF_VALUES[pod]
+    small = {"a": torch.full((2048,), c, device=dev), "b": torch.full((4096,), 2 * c, device=dev)}
+    e, outs = ef_init(small), []
+    for _ in range(POD_EF_STEPS):
+        m, e = compressed_pod_mean(small, e, ai, None)
+        outs.append(m)
+    ef = {k: float((torch.stack([o[k] for o in outs]).mean(0) / (1 if k == "a" else 2)).sub(
+        sum(POD_EF_VALUES) / 2).abs().max() / (sum(POD_EF_VALUES) / 2)) for k in small}
+    return {"ms": ms, "elements": nbytes // 4, "max_err_in_steps": worst_step, "residual_exact": residual_exact,
+            "digests": digests, "err_digests": err_digests, "pod": pod, "ef_rel_err": max(ef.values())}
+
+
+def _rounded_once(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, chunk: int = 1 << 24) -> torch.Tensor:
+    """``x - q * scale`` rounded once to f32 (exact in f64: ``q * scale``
+    has at most 31 significant bits, and ``x`` lies within a step of it),
+    a chunk at a time."""
+    out = torch.empty_like(x).reshape(-1)
+    xf, qf, s = x.reshape(-1), q.reshape(-1), scale.double()
+    for a in range(0, xf.numel(), chunk):
+        out[a:a + chunk] = (xf[a:a + chunk].double() - qf[a:a + chunk].double() * s).float()
+    return out.view(x.shape)
+
+
+def _launcher_cell(dev) -> dict:
+    """Step 16 (d): ``repro_torch.launch.train.train`` with
+    ``model_parallel=2`` over the four ranks, on the smoke config."""
+    from repro_torch.core import Cluster
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch.train import state_specs, train
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.storage.checkpoint import restore_onto_mesh
+
+    cfg = get_config("llama3_2-1b").smoke()
+    cluster = Cluster(n_data_providers=4, n_metadata_providers=4, shared_cache_bytes=0)
+    try:
+        run = train("llama3_2-1b", smoke=True, steps=30, batch=8, seq=64, checkpoint_every=10, lr=1e-2,
+                    model_parallel=2, session=cluster.session(), device=dev)
+        ai2 = launch_mesh.make_axis_info(launch_mesh.make_mesh((4, 1), ("data", "model")))
+        state = restore_onto_mesh(run["checkpointer"], state_specs(cfg, ai2), ai2, step=30, device=dev)
+        final = shd.gather_params(run["params"], cfg, run["axis_info"])
+        restored = all(bits_equal(a, b) for a, b in zip(_paths(state["params"]).values(), _paths(final).values()))
+        restored &= all(bits_equal(a, b) for a, b in zip(_paths(state["opt"]["m"]).values(),
+                                                         _paths(shd.gather_params(run["opt_state"]["m"], cfg,
+                                                                                  run["axis_info"])).values()))
+    finally:
+        cluster.close()
+    losses = run["losses"]
+    kw = dict(smoke=True, steps=20, batch=4, seq=64, checkpoint_every=10, seed=3, model_parallel=2, device=dev)
+    a = train("llama3_2-1b", **kw)
+    cluster = Cluster(n_data_providers=4, n_metadata_providers=4, shared_cache_bytes=0)
+    try:
+        session = cluster.session()
+        crashed = False
+        try:
+            train("llama3_2-1b", session=session, fail_at_step=14, **kw)
+        except RuntimeError as e:
+            crashed = "injected failure" in str(e)
+        b = train("llama3_2-1b", session=session, restore=True, **kw)
+    finally:
+        cluster.close()
+    return {"loss_drop": float(np.mean(losses[:5]) - np.mean(losses[-5:])), "losses": losses,
+            "restored_bit_equal": restored, "crashed": crashed,
+            "resume_rel": abs(a["losses"][-1] - b["losses"][-1]) / abs(a["losses"][-1])}
+
+
+def train_sharded_rank(ai, chosen, card, batches, oracle_paths):
+    """Step 16 on one rank: (a), (b), (c), (d) in turn."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, rank = chosen.device, ai.mesh.rank
+    kernels = (flash_attention_cuda, paged_attention_cuda)
+    for k in kernels:
+        k.launches = 0
+    llama, mixtral = _train_shard_configs()
+    out = {"backend": chosen.backend}
+    for name, run in (("llama", lambda: _sharded_train_cell(llama, ai, dev, batches["llama"], oracle_paths["llama"],
+                                                             in_turn=False)),
+                      ("mixtral", lambda: _sharded_train_cell(mixtral, ai, dev, batches["mixtral"],
+                                                               oracle_paths["mixtral"], in_turn=True)),
+                      ("pod_mean", lambda: _pod_mean_cell(llama, dev)),
+                      ("launcher", lambda: _launcher_cell(dev))):
+        t0 = time.perf_counter()
+        out[name] = run()
+        out[name]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            print(f"  [rank 0] {name} in {out[name]['seconds']:.1f} s", flush=True)
+    out["launches"] = {k.__name__.removesuffix("_cuda"): k.launches for k in kernels}
+    return out
+
+
+def train_sharded_phase(card) -> dict:
+    """Step 16: training across ranks. The oracles run first, in this
+    process, and are freed; then four spawned ranks of a (data 2, model 2)
+    mesh (gloo: NCCL refuses two ranks on one card) run (a)-(d)."""
+    import shutil
+
+    from repro_torch.launch import mesh as launch_mesh
+
+    t_start = time.perf_counter()
+    dev = torch.device(TRAIN_SHARD_DEVICE)
+    llama, mixtral = _train_shard_configs()
+    TRAIN_SHARD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {"llama": str(TRAIN_SHARD_DIR / "llama.pt"), "mixtral": str(TRAIN_SHARD_DIR / "mixtral.pt")}
+    print(f"  disk free beside the checkout: {shutil.disk_usage(TRAIN_SHARD_DIR).free / 2**30:.1f} GiB", flush=True)
+    batches = {"llama": _pipeline_batches(llama.vocab_size, TRAIN_SHARD_ROWS, TRAIN_SHARD_STEPS),
+               "mixtral": _pipeline_batches(mixtral.vocab_size, MOE_TRAIN_ROWS, 1)}
+    try:
+        t0 = time.perf_counter()
+        oracle_losses = llama_train_oracle(llama, dev, batches["llama"], paths["llama"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_loss = moe_train_oracle(mixtral, dev, batches["mixtral"][0], paths["mixtral"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  oracles in {time.perf_counter() - t0:.1f} s: llama3_2-1b ({llama.n_layers} layers) unsharded "
+              f"losses {oracle_losses}; mixtral-8x7b ({mixtral.n_layers} layer) shard by shard loss {moe_loss:.6f}; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated here", flush=True)
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+        t0 = time.perf_counter()
+        res = launch_mesh.spawn(train_sharded_rank, RANKS, (card, batches, paths), model_parallel=RANKS_MODEL,
+                                device=TRAIN_SHARD_DEVICE, timeout_s=TRAIN_SHARD_DEADLINE_S)
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(TRAIN_SHARD_DIR, ignore_errors=True)
+    out = {"backend": res[0]["backend"], "spawn_s": spawn_s, "card": card}
+    for name, oracle in (("llama", oracle_losses), ("mixtral", [moe_loss])):
+        rs = [r[name] for r in res]
+        expert = _expert_mask(name)
+        for i in range(len(rs[0]["digests"])):  # replicated leaves as rank 0's, expert blocks as their model rank's
+            for rank in range(1, RANKS):
+                for j, (mine, sharded) in enumerate(zip(rs[rank]["digests"][i], expert)):
+                    check(mine == rs[rank % RANKS_MODEL if sharded else 0]["digests"][i][j],
+                          f"step 16 {name}: rank {rank}'s state after step {i + 1} differs from its replicas")
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(rs[0]["losses"], oracle)]
+        row = {"steps_ms": [r["steps_ms"] for r in rs], "median_step_ms": [statistics.median(r["steps_ms"]) for r in rs],
+               "losses": rs[0]["losses"], "oracle_losses": oracle, "loss_rel": loss_rel,
+               "grad_allreduce_calls": rs[0]["grad_calls"], "grad_allreduce_bytes": rs[0]["grad_bytes"],
+               "grad_allreduce_ms": [statistics.median(r["reduce_ms"]) for r in rs],
+               "peak_gib": [r["peak_gib"] for r in rs], "card_free_gib": [r["card_free_gib"] for r in rs],
+               "errs": [r["errs"] for r in rs], "worst_leaf": rs[0]["worst_leaf"],
+               "expert_bytes": [r["expert_bytes"] for r in rs]}
+        tag = "a" if name == "llama" else "b"
+        print(f"  ({tag}) {name}: losses {row['losses']} vs oracle {oracle} (relative {max(loss_rel):.2e}, tol "
+              f"{TRAIN_SHARD_LOSS_TOL}); worst leaf vs oracle, over its max: "
+              + "; ".join(f"rank {i} " + ", ".join(f"{k} {v:.2e}" for k, v in e.items()) for i, e in enumerate(row["errs"]))
+              + f" (tol {TRAIN_SHARD_GRAD_TOL}); replicas bit-equal after every step", flush=True)
+        print(f"    median step {[round(x, 1) for x in row['median_step_ms']]} ms (host clock, synchronised); "
+              f"gradient all-reduce {row['grad_allreduce_calls']} calls, {row['grad_allreduce_bytes']} bytes, "
+              f"{[round(x, 1) for x in row['grad_allreduce_ms']]} ms a step; peak {[round(x, 2) for x in row['peak_gib']]} "
+              f"GiB a rank, card free after step 1 {[round(x, 2) for x in row['card_free_gib']]} GiB "
+              f"(mem_get_info); expert bytes a rank {row['expert_bytes']}; {card}", flush=True)
+        check(max(loss_rel) <= TRAIN_SHARD_LOSS_TOL, f"step 16 {name}: sharded loss off the oracle: {loss_rel}")
+        check(all(max(e.values()) <= TRAIN_SHARD_GRAD_TOL for e in row["errs"]),
+              f"step 16 {name}: gradients or moments off the oracle: {row['errs']}")
+        out[name] = row
+    pods = [r["pod_mean"] for r in res]
+    out["pod_mean"] = {"ms": [p["ms"] for p in pods], "elements": pods[0]["elements"],
+                       "max_err_in_steps": max(p["max_err_in_steps"] for p in pods),
+                       "ef_rel_err": max(p["ef_rel_err"] for p in pods)}
+    print(f"  (c) compressed_pod_mean over (pod 2, data 2), {pods[0]['elements']} elements in "
+          f"{len(pods[0]['digests'])} leaves: {[round(p['ms'], 1) for p in pods]} ms; mean within "
+          f"{out['pod_mean']['max_err_in_steps']:.3f} quantization steps of the exact pod mean (at most 1); "
+          f"residual exact: {[p['residual_exact'] for p in pods]}; {POD_EF_STEPS} EF steps: relative error "
+          f"{out['pod_mean']['ef_rel_err']:.2e} (tol {POD_EF_RTOL}); {card}", flush=True)
+    check(out["pod_mean"]["max_err_in_steps"] <= 1.0, "step 16 (c): a pod mean is off by more than one step")
+    check(all(p["residual_exact"] for p in pods), "step 16 (c): a residual is not g + e - q * scale")
+    check(all(p["digests"] == pods[0]["digests"] for p in pods), "step 16 (c): the means differ across ranks")
+    check(all(p["err_digests"] == q["err_digests"] for p in pods for q in pods if p["pod"] == q["pod"]),
+          "step 16 (c): the residuals differ within a pod")
+    check(out["pod_mean"]["ef_rel_err"] <= POD_EF_RTOL, "step 16 (c): error feedback did not converge")
+    ls = [r["launcher"] for r in res]
+    out["launcher"] = {k: ls[0][k] for k in ("loss_drop", "resume_rel", "restored_bit_equal")}
+    print(f"  (d) launcher, model_parallel 2 over 4 ranks: loss drop over 30 smoke steps {ls[0]['loss_drop']:.4f} "
+          f"(at least 0.5); crash at step 14 and rerun: final loss relative {ls[0]['resume_rel']:.2e} (tol 1e-4); "
+          f"step-30 checkpoint onto (data 4, model 1) bit-equal: {[x['restored_bit_equal'] for x in ls]}", flush=True)
+    check(all(x["losses"] == ls[0]["losses"] for x in ls), "step 16 (d): the ranks' losses differ")
+    check(ls[0]["loss_drop"] >= 0.5, f"step 16 (d): the loss did not fall: {ls[0]['losses']}")
+    check(all(x["crashed"] for x in ls), "step 16 (d): the injected failure did not raise on every rank")
+    check(all(x["resume_rel"] <= 1e-4 for x in ls), "step 16 (d): the rerun ends off the uninterrupted run")
+    check(all(x["restored_bit_equal"] for x in ls), "step 16 (d): the restored state differs from the final")
+    out["launches"] = [r["launches"] for r in res]
+    check(all(n == 0 for r in res for n in r["launches"].values()), f"a kernel ran in step 16: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_start
+    out["rank_seconds"] = {k: [r[k]["seconds"] for r in res] for k in ("llama", "mixtral", "pod_mean", "launcher")}
+    print(f"  step 16 in {out['seconds']:.1f} s ({card})", flush=True)
+    return out
+
+
+def _expert_mask(name: str) -> list:
+    """For each digest of a cell's state (params, then m, then v, leaves in
+    order), whether the leaf is an expert block (one per model rank)."""
+    from repro_torch.convert import param_shapes
+    from repro_torch.launch.mesh import make_axis_info
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.axisinfo import Mesh
+
+    llama, mixtral = _train_shard_configs()
+    cfg = llama if name == "llama" else mixtral
+    ai = make_axis_info(Mesh((RANKS // RANKS_MODEL, RANKS_MODEL), ("data", "model")))
+    return [bool(len(s)) for s in _paths(shd.local_param_specs(param_shapes(cfg), cfg, ai)).values()] * 3
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -3130,7 +3652,14 @@ def main() -> None:
           flush=True)
     sharded = sharded_phase(card)
 
-    # 16. results
+    # 16. training across ranks: four spawned ranks, the experts over the model axis
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"training across ranks ({torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated here):",
+          flush=True)
+    train_sharded = train_sharded_phase(card)
+
+    # 17. results
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:79"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -3150,6 +3679,7 @@ def main() -> None:
             "launches_federated_sky": fed_sky["launches"][name],
             "launches_sharded": {cell: [n[name] for n in sharded[cell]["launches"]]
                                  for cell in ("llama", "mixtral", "mistral")},
+            "launches_train_sharded": [n[name] for n in train_sharded["launches"]],
             "shapes": rows[name], **grids[name],
         })
     measures = ("prefill_ms", "decode_step_ms", "decode_step_least_ms", "decode_tok_s", "build_peak_gib",
@@ -3166,7 +3696,7 @@ def main() -> None:
                       "training": {k: training[k] for k in train_measures},
                       "sky": {"card": card, **{k: sky[k] for k in sky_measures}},
                       "federated_sky": {"card": card, **{k: fed_sky[k] for k in fed_measures}},
-                      "sharded": sharded}), flush=True)
+                      "sharded": sharded, "train_sharded": train_sharded}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -1,33 +1,83 @@
-"""Single-device training launcher, the counterpart of
-:mod:`repro.launch.train`: a learnable bigram corpus stored as one blob and
-read through :class:`TokenPipeline`, versioned incremental checkpoints on
-the same store (:class:`BlobCheckpointer`, resumed at the optimizer's step
-with ``restore``), AdamW with gradient accumulation.
+"""Training launcher, the counterpart of :mod:`repro.launch.train`: a
+learnable bigram corpus stored as one blob and read through
+:class:`TokenPipeline`, versioned incremental checkpoints on the same store
+(:class:`BlobCheckpointer`, resumed at the optimizer's step with
+``restore``), AdamW with gradient accumulation; on one device, or across
+the ranks of an initialised process group on the elastic ``(data, model)``
+mesh (``model_parallel`` its model axis).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_2-1b --smoke --device cpu --steps 30
 
-Runs on the card unless ``--device cpu``. No multi-process or mesh
-training: ``--model-parallel`` other than 1 raises.
+Across ranks (one process per rank; :func:`main` joins the group from
+``RANK``/``WORLD_SIZE`` with ``MASTER_ADDR``/``MASTER_PORT``, or from the
+JAX package's ``COORDINATOR_ADDRESS``/``NUM_PROCESSES``/``PROCESS_ID``):
+
+    RANK=0 WORLD_SIZE=4 MASTER_ADDR=localhost MASTER_PORT=29500 \
+        PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_2-1b --smoke --model-parallel 2
+
+and the same with ``RANK`` 1-3. Every rank reads the global batch from a
+pipeline over its own copy of the corpus (the blob store lives in one
+process; the JAX package's one process reads the global batch too), trains
+on its data shard, and rank 0 holds the checkpoints: the experts are
+regathered over the model axis before each save, and a restore broadcasts
+each leaf (:func:`repro_torch.storage.checkpoint.restore_onto_mesh`). Runs
+on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.cluster import Cluster, Session
 from repro_torch.data.pipeline import PipelineConfig, TokenPipeline, write_token_corpus
+from repro_torch.launch.mesh import init_distributed, make_axis_info, make_mesh_for_devices
 from repro_torch.models.lm import build_model
-from repro_torch.storage.checkpoint import BlobCheckpointer
+from repro_torch.parallel import sharding as shd
+from repro_torch.storage.checkpoint import BlobCheckpointer, restore_onto_mesh
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
 from repro_torch.train.trainer import make_train_step
+
+
+def maybe_init_distributed(device="cuda"):
+    """Join the process group the environment describes: ``RANK`` and
+    ``WORLD_SIZE`` (``env://``, with ``MASTER_ADDR``/``MASTER_PORT``), or
+    the JAX package's ``COORDINATOR_ADDRESS``, ``NUM_PROCESSES`` and
+    ``PROCESS_ID``. Returns what :func:`init_distributed` chose, or None
+    (one process) when neither is set."""
+    env = os.environ
+    if "RANK" in env and "WORLD_SIZE" in env:
+        return init_distributed(int(env["RANK"]), int(env["WORLD_SIZE"]), "env://", device=device)
+    if env.get("COORDINATOR_ADDRESS"):
+        return init_distributed(int(env["PROCESS_ID"]), int(env["NUM_PROCESSES"]),
+                                f"tcp://{env['COORDINATOR_ADDRESS']}", device=device)
+    return None
+
+
+def state_specs(cfg, axis_info):
+    """The spec tree of the training state ``{"params", "opt"}`` as a rank
+    holds it (:func:`shd.local_param_specs`; the step replicated)."""
+    from repro_torch.convert import param_shapes
+
+    specs = shd.local_param_specs(param_shapes(cfg), cfg, axis_info)
+    return {"params": specs, "opt": {"m": specs, "v": specs, "step": shd.P()}}
+
+
+def _meta(tree):
+    """Shapes and dtypes only: the checkpointer's template."""
+    if isinstance(tree, dict):
+        return {k: _meta(v) for k, v in tree.items()}
+    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
 
 
 def corpus_tokens(batch: int, seq: int) -> int:
@@ -65,23 +115,39 @@ def train(
     device="cuda",
 ):
     """Train ``arch`` for ``steps`` steps of ``batch`` rows of ``seq``
-    tokens; returns the losses, the final state, the checkpointer, session
-    and pipeline. Without ``session`` it makes a cluster of its own and
-    closes it before returning. With ``restore``, resumes from the
-    checkpointer's latest checkpoint, if it has one, at its step."""
-    if model_parallel != 1:
-        raise NotImplementedError("model-parallel training is not ported yet (ROADMAP Queue 1, item 6)")
+    tokens; returns the losses, the final state (this rank's), the
+    checkpointer (None but on rank 0 across ranks), session, pipeline and
+    ``axis_info`` (None on one device). Without ``session`` it makes a
+    cluster of its own and closes it before returning. With ``restore``,
+    resumes from the checkpointer's latest checkpoint, if it has one, at
+    its step. Across ranks every rank of the process group calls it; the
+    mesh is ``(world // model_parallel, model_parallel)``."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.smoke()
     cfg = dataclasses.replace(cfg, grad_accum=min(cfg.grad_accum, max(batch // 2, 1)))
 
+    mesh = make_mesh_for_devices(model_parallel=model_parallel)
+    axis_info = make_axis_info(mesh) if mesh.size > 1 else None
+    rank = mesh.rank
+
     model = build_model(cfg)
     params = model.init(seed=seed, device=dev)
+    template = {"params": _meta(params), "opt": adamw_init(_meta(params))}  # the logical state's layout
+    if axis_info is not None:  # this rank's experts, in tensors of their own
+        params = shd.shard_params(params, cfg, axis_info, copy=True)
     opt_state = adamw_init(params)
     opt_cfg = AdamWConfig(lr=lr, total_steps=steps, warmup_steps=max(steps // 10, 1))
-    step_fn = make_train_step(model, cfg, opt_cfg)
+    step_fn = make_train_step(model, cfg, opt_cfg, axis_info)
+
+    def full_state():
+        """The logical state (experts regathered; every rank calls it)."""
+        if axis_info is None:
+            return {"params": params, "opt": opt_state}
+        return {"params": shd.gather_params(params, cfg, axis_info),
+                "opt": {"m": shd.gather_params(opt_state["m"], cfg, axis_info),
+                        "v": shd.gather_params(opt_state["v"], cfg, axis_info), "step": opt_state["step"]}}
 
     own_cluster = session is None
     if own_cluster:
@@ -95,14 +161,26 @@ def train(
             PipelineConfig(batch_per_rank=batch, seq_len=seq, n_ranks=1, rank=0, seed=seed),
         )
 
-        # ---- checkpointing ----
-        ckpt = BlobCheckpointer(session, {"params": params, "opt": opt_state}, page_size=1 << 16)
+        # ---- checkpointing: on rank 0, of the logical state ----
+        ckpt = None
+        if rank == 0:
+            ckpt = BlobCheckpointer(session, template, page_size=1 << 16)
         start_step = 0
-        if restore and ckpt.checkpoints:
-            state = ckpt.restore(device=dev)
-            params, opt_state = state["params"], state["opt"]
-            start_step = int(opt_state["step"])
-            pipe.set_step(start_step)
+        if restore:
+            if axis_info is None:
+                found = bool(ckpt.checkpoints)
+            else:
+                flag = [bool(ckpt is not None and ckpt.checkpoints)]
+                dist.broadcast_object_list(flag, src=0)
+                found = flag[0]
+            if found:
+                if axis_info is None:
+                    state = ckpt.restore(device=dev)
+                else:
+                    state = restore_onto_mesh(ckpt, state_specs(cfg, axis_info), axis_info, device=dev)
+                params, opt_state = state["params"], state["opt"]
+                start_step = int(opt_state["step"])
+                pipe.set_step(start_step)
 
         losses = []
         t0 = time.time()
@@ -113,8 +191,10 @@ def train(
             params, opt_state, metrics = step_fn(params, opt_state, batch_dev)
             losses.append(float(metrics["loss"]))
             if (step + 1) % checkpoint_every == 0 or step + 1 == steps:
-                ckpt.save(step + 1, {"params": params, "opt": opt_state})
-            if step % 10 == 0:
+                state = full_state()
+                if ckpt is not None:
+                    ckpt.save(step + 1, state)
+            if step % 10 == 0 and rank == 0:
                 print(f"step {step} loss {losses[-1]:.4f} "
                       f"({(time.time() - t0) / max(step - start_step + 1, 1):.2f}s/step)", flush=True)
     finally:
@@ -128,6 +208,7 @@ def train(
         "session": session,
         "pipeline": pipe,
         "final_step": steps,
+        "axis_info": axis_info,
     }
 
 
@@ -144,12 +225,17 @@ def main():
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
-    out = train(
-        args.arch, smoke=args.smoke, steps=args.steps, batch=args.batch,
-        seq=args.seq, model_parallel=args.model_parallel,
-        checkpoint_every=args.checkpoint_every, restore=args.restore, lr=args.lr,
-        device=args.device,
-    )
+    joined = maybe_init_distributed(args.device)
+    try:
+        out = train(
+            args.arch, smoke=args.smoke, steps=args.steps, batch=args.batch,
+            seq=args.seq, model_parallel=args.model_parallel,
+            checkpoint_every=args.checkpoint_every, restore=args.restore, lr=args.lr,
+            device=joined.device if joined is not None else args.device,
+        )
+    finally:
+        if joined is not None:
+            dist.destroy_process_group()
     print(f"final loss {out['losses'][-1]:.4f}")
 
 

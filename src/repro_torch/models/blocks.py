@@ -40,25 +40,27 @@ def block_init(gen: torch.Generator, cfg: ModelConfig):
     return params
 
 
-def _ffn(params, h: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisInfo] = None):
+def _ffn(params, h: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisInfo] = None,
+         local_batch: bool = False):
     """The feed-forward half: (out, aux loss), aux 0 for a dense block."""
     if cfg.is_moe:
-        return moe_mod.moe_ffn(params, h, cfg, axis_info)
+        return moe_mod.moe_ffn(params, h, cfg, axis_info, local_batch=local_batch)
     return mlp(params, h, cfg), torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def block_apply(
     params, x: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisInfo] = None, *, causal: bool = True,
-    return_kv: bool = False, impl: Optional[str] = None,
+    return_kv: bool = False, impl: Optional[str] = None, local_batch: bool = False,
 ):
-    """Full-sequence block (prefill, encoder). Returns (x, aux), or (x, aux,
-    (k, v)). Under ``axis_info`` only a MoE ffn is split over the ranks;
-    attention runs whole on every rank (its K/V are replicated, as the
-    JAX package's values outside ``shard_map``)."""
+    """Full-sequence block (prefill, encoder, training). Returns (x, aux),
+    or (x, aux, (k, v)). Under ``axis_info`` only a MoE ffn is split over
+    the ranks; attention runs whole on every rank (its K/V are replicated,
+    as the JAX package's values outside ``shard_map``). ``local_batch``:
+    ``x`` is this rank's data shard (training; :func:`moe_mod.moe_ffn`)."""
     h = rmsnorm(x, params["ln1"])
     a, kv = attn.attention_train(params["attn"], h, cfg, causal=causal, return_kv=True, impl=impl)
     x = x + a
-    f, aux = _ffn(params["ffn"], rmsnorm(x, params["ln2"]), cfg, axis_info)
+    f, aux = _ffn(params["ffn"], rmsnorm(x, params["ln2"]), cfg, axis_info, local_batch)
     x = x + f
     return (x, aux, kv) if return_kv else (x, aux)
 

@@ -4,7 +4,7 @@ embeddings, the tied f32 unembedding and the training cross-entropy."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -87,10 +87,13 @@ def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x.float() @ params["table"].float().T
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
+                  denom: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean cross-entropy over the labels that are not padding (label -1),
     with the padded vocab tail masked to -1e30. Returns (loss, accuracy),
-    f32 scalars.
+    f32 scalars. ``denom``, when given, divides the sums in place of the
+    count of these labels: a rank's rows of a batch give its share of the
+    batch's mean when ``denom`` counts the whole batch's labels.
 
     The gold logit is gathered: the JAX version contracts with a one-hot so
     that the vocab axis can stay sharded, which on one device gives the same
@@ -104,6 +107,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int) -
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     nll = (logz - gold) * mask
-    denom = mask.sum().clamp_min(1)
+    if denom is None:
+        denom = mask.sum().clamp_min(1)
     acc = ((logits.argmax(dim=-1) == labels) * mask).sum() / denom
     return nll.sum() / denom, acc

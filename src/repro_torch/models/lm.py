@@ -41,8 +41,12 @@ which :func:`repro_torch.parallel.sharding.shard_cache` stripes for
 replicated (the JAX package shards those over the batch axes; each row's
 state depends on that row alone, so the numbers are the same). The JAX
 package's layout hints (``constrain_batch``, ``_constrain_logits``) have no
-effect on the numbers and no counterpart here. Training across ranks is not
-ported (ROADMAP Queue 1, item 6).
+effect on the numbers and no counterpart here. ``train_loss`` with an
+``axis_info`` takes the global batch, as the JAX package's does, and
+computes on this rank's block of its rows (every row when they do not
+divide over the batch axes): its loss and metrics are the rank's shares,
+whose sums over the batch axes are the JAX package's values
+(:func:`_shard_batch`).
 """
 
 from __future__ import annotations
@@ -226,14 +230,50 @@ def _batch_h(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.
     return embed(params["embed"], batch["tokens"], cfg)
 
 
-def _ce(params, h: torch.Tensor, batch, cfg: ModelConfig):
-    """(ce, acc) of the f32 tied unembedding of ``h`` against ``batch["labels"]``."""
-    return cross_entropy(unembed(params["embed"], h, cfg), batch["labels"], cfg.vocab_size)
+def _ce(params, h: torch.Tensor, shard: "_Shard", cfg: ModelConfig):
+    """(ce, acc) of the f32 tied unembedding of ``h`` against the shard's
+    labels: the rank's shares of the batch's mean under an axis_info."""
+    return cross_entropy(unembed(params["embed"], h, cfg), shard.batch["labels"], cfg.vocab_size, shard.denom)
 
 
-def _no_sharded_training(axis_info) -> None:
-    if axis_info is not None:
-        raise NotImplementedError("training across ranks is not ported yet (ROADMAP Queue 1, item 6)")
+@dataclasses.dataclass(frozen=True)
+class _Shard:
+    """What a rank trains on: ``batch`` its rows, ``denom`` the divisor of
+    its label sums (None: its own count of labels), ``n`` the number of
+    shares its loss is one of, ``local`` whether its rows are its data
+    shard alone."""
+
+    batch: Dict[str, torch.Tensor]
+    denom: Optional[torch.Tensor] = None
+    n: int = 1
+    local: bool = False
+
+    def share(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's share of a value that is the same on every rank (the
+        aux loss, averaged over the batch axes)."""
+        if self.n == 1:
+            return x
+        return x / torch.full((), self.n, dtype=x.dtype, device=x.device)
+
+
+def _shard_batch(batch: Dict[str, torch.Tensor], axis_info: Optional[AxisInfo]) -> _Shard:
+    """The rank's part of a global (micro)batch under ``axis_info``, the
+    JAX package's ``constrain_batch``: its block of rows over the batch
+    axes when they divide the batch, else every row (the JAX package then
+    keeps the batch replicated). Its label sums are divided by the count of
+    valid labels in the whole batch (times the number of shares when every
+    rank holds every row), counted here: every rank holds the whole batch.
+    The shares, summed over the batch axes, are the JAX package's values."""
+    if axis_info is None:
+        return _Shard(batch)
+    n = axis_info.n_batch_shards
+    count = (batch["labels"] >= 0).sum().clamp_min(1)
+    rows = batch["labels"].shape[0]
+    if rows % n:
+        return _Shard(batch, count * n, n, False)
+    i = axis_info.mesh.axes_index(axis_info.batch_axes)
+    b = rows // n
+    return _Shard({k: v[i * b:(i + 1) * b] for k, v in batch.items()}, count, n, True)
 
 
 def _no_aux(x: torch.Tensor) -> torch.Tensor:
@@ -352,13 +392,17 @@ def _decoder_lm(cfg: ModelConfig) -> Model:
     def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla", axis_info=None):
         """``loss = ce + MOE_AUX_WEIGHT * aux``; metrics ``ce``, ``aux``
         (the MoE load-balance loss summed over layers, 0 for a dense model),
-        ``acc``."""
-        _no_sharded_training(axis_info)
+        ``acc``. Under ``axis_info`` the loss and metrics are this rank's
+        shares (:func:`_shard_batch`): the MoE routes the rank's tokens and
+        averages its aux over the batch axes, of which the rank takes its
+        share, so that the sum over the batch axes counts it once."""
         impl = _train_impl(cfg, impl)
-        h = _batch_h(params, batch, cfg)
-        body = lambda p, x: B.block_apply(p, x, cfg, impl=impl)  # noqa: E731
+        shard = _shard_batch(batch, axis_info)
+        h = _batch_h(params, shard.batch, cfg)
+        body = lambda p, x: B.block_apply(p, x, cfg, axis_info, impl=impl, local_batch=shard.local)  # noqa: E731
         h, aux = B.scan_apply(B.unstack(params["blocks"], cfg.n_layers), h, body, cfg)
-        ce, acc = _ce(params, rmsnorm(h, params["ln_f"]), batch, cfg)
+        ce, acc = _ce(params, rmsnorm(h, params["ln_f"]), shard, cfg)
+        aux = shard.share(aux)
         return ce + MOE_AUX_WEIGHT * aux, {"ce": ce, "aux": aux, "acc": acc}
 
     return Model(init, prefill, decode_step, init_cache, train_loss)
@@ -422,14 +466,15 @@ def _ssm_lm(cfg: ModelConfig) -> Model:
         return logits, {"ssm": dict(states), "lengths": cache["lengths"] + 1}
 
     def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla", axis_info=None):
-        """The cross-entropy; metrics ``ce``, ``acc``. No attention:
-        ``impl`` is checked for the common signature."""
-        _no_sharded_training(axis_info)
+        """The cross-entropy; metrics ``ce``, ``acc`` (the rank's shares
+        under ``axis_info``). No attention: ``impl`` is checked for the
+        common signature."""
         _train_impl(cfg, impl)
-        h = _batch_h(params, batch, cfg)
+        shard = _shard_batch(batch, axis_info)
+        h = _batch_h(params, shard.batch, cfg)
         body = lambda p, x: (B.ssm_block_apply(p, x, cfg), _no_aux(x))  # noqa: E731
         h, _ = B.scan_apply(B.unstack(params["blocks"], cfg.n_layers), h, body, cfg)
-        ce, acc = _ce(params, rmsnorm(h, params["ln_f"]), batch, cfg)
+        ce, acc = _ce(params, rmsnorm(h, params["ln_f"]), shard, cfg)
         return ce, {"ce": ce, "acc": acc}
 
     return Model(init, prefill, decode_step, init_cache, train_loss)
@@ -507,10 +552,11 @@ def _hybrid_lm(cfg: ModelConfig) -> Model:
 
     def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla", axis_info=None):
         """Each group's Mamba2 layers (remat groups within it), then the
-        shared block under its own checkpoint; metrics ``ce``, ``acc``."""
-        _no_sharded_training(axis_info)
+        shared block under its own checkpoint; metrics ``ce``, ``acc`` (the
+        rank's shares under ``axis_info``)."""
         impl = _train_impl(cfg, impl)
-        h = _batch_h(params, batch, cfg)
+        shard = _shard_batch(batch, axis_info)
+        h = _batch_h(params, shard.batch, cfg)
         flat = _tree_map(lambda _, t: t.reshape(cfg.n_layers, *t.shape[2:]), params["mamba"])
         mamba = B.unstack(flat, cfg.n_layers)
         ssm_body = lambda p, x: (B.ssm_block_apply(p, x, cfg), _no_aux(x))  # noqa: E731
@@ -518,7 +564,7 @@ def _hybrid_lm(cfg: ModelConfig) -> Model:
         for g in range(n_groups):
             h, _ = B.scan_apply(mamba[g * per_group:(g + 1) * per_group], h, ssm_body, cfg)
             h, _ = shared(params["shared_attn"], h)
-        ce, acc = _ce(params, rmsnorm(h, params["ln_f"]), batch, cfg)
+        ce, acc = _ce(params, rmsnorm(h, params["ln_f"]), shard, cfg)
         return ce, {"ce": ce, "acc": acc}
 
     return Model(init, prefill, decode_step, init_cache, train_loss)
@@ -612,9 +658,10 @@ def _encdec_lm(cfg: ModelConfig) -> Model:
     def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla", axis_info=None):
         """Encode ``batch["enc_embeds"]``, then the decoder over
         ``batch["tokens"]``, each decoder layer under its own checkpoint;
-        metrics ``ce``, ``acc``."""
-        _no_sharded_training(axis_info)
+        metrics ``ce``, ``acc`` (the rank's shares under ``axis_info``)."""
         impl = _train_impl(cfg, impl)
+        shard = _shard_batch(batch, axis_info)
+        batch = shard.batch
         enc = lambda p, x: B.block_apply(p, x, cfg, causal=False, impl=impl)  # noqa: E731
         h, _ = B.scan_apply(B.unstack(params["encoder"], n_enc), batch["enc_embeds"].to(cfg.cdtype()), enc, cfg)
         enc_out = rmsnorm(h, params["ln_enc"])
@@ -622,7 +669,7 @@ def _encdec_lm(cfg: ModelConfig) -> Model:
         h = embed(params["embed"], batch["tokens"], cfg)
         for p in B.unstack(params["decoder"], n_dec):
             h = dec(p, h)
-        ce, acc = _ce(params, rmsnorm(h, params["ln_dec"]), batch, cfg)
+        ce, acc = _ce(params, rmsnorm(h, params["ln_dec"]), shard, cfg)
         return ce, {"ce": ce, "acc": acc}
 
     return Model(init, prefill, decode_step, init_cache, train_loss)

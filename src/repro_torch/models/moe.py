@@ -21,7 +21,16 @@ chosen by whether the experts divide the model axis:
 Both run the same local dispatch; the partial outputs are summed over the
 model axis. Tokens are split over the batch axes when they divide them
 (else every rank routes all of them, as the JAX package's tiny decode
-batches), and the output is regathered on every rank.
+batches), and the output is regathered on every rank. In training
+(``local_batch=True``) the tokens are already this rank's data shard: it
+routes all of them, and the output is only summed over the model axis.
+Either way the capacity counts the tokens the rank routes, and the aux
+loss is averaged over the batch axes (the JAX package's ``shard_map``
+body). Under autograd the collectives are those of
+:mod:`repro_torch.parallel.collectives` that state their backward: the
+tokens and gates entering this rank's experts get the other model ranks'
+parts of their gradient (:func:`collectives.grad_psum`); the aux, computed
+from the whole replicated gates, does not.
 """
 
 from __future__ import annotations
@@ -65,9 +74,12 @@ def _moe_local(
     *,
     first_expert: int = 0,
     n_local_experts: int,
+    expert_inputs=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatch -> expert products -> combine. Returns (out (T, d) in x's
-    dtype, the Switch load-balance aux loss as an f32 scalar)."""
+    dtype, the Switch load-balance aux loss as an f32 scalar).
+    ``expert_inputs(x, gates) -> (x, gates)``, when given, maps the tokens
+    and gates that the experts' path reads (not the aux's)."""
     T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     ct = cfg.cdtype()
@@ -75,6 +87,8 @@ def _moe_local(
 
     gates = x.float() @ router.float()  # (T, E)
     probs = torch.softmax(gates, dim=-1)
+    if expert_inputs is not None:
+        x, gates = expert_inputs(x, gates)
     top_w, top_e = torch.topk(gates, k, dim=-1)  # (T, k)
     top_w = torch.softmax(top_w, dim=-1)  # renormalised over the chosen experts
 
@@ -128,16 +142,19 @@ def use_expert_parallel(cfg: ModelConfig, tp: int) -> bool:
     raise ValueError(f"neither experts ({cfg.n_experts}) nor d_ff ({cfg.d_ff}) divide tp={tp}")
 
 
-def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisInfo] = None):
+def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisInfo] = None,
+            local_batch: bool = False):
     """MoE feed-forward. Returns (out (B, S, d), aux scalar).
 
     With ``axis_info``: this rank routes its block of the ``B*S`` tokens
     over the batch axes (all of them when they do not divide), through its
     experts (EP) or its ffn columns (expert-TP); the outputs are summed
     over the model axis and regathered over the batch axes in one
-    all-reduce (:func:`collectives.regather`), and ``aux`` is averaged over
-    the batch axes (it is the same on every model rank: the router is
-    replicated)."""
+    all-reduce (:func:`collectives.gather_blocks`), and ``aux`` is averaged
+    over the batch axes (it is the same on every model rank: the router is
+    replicated). With ``local_batch`` the ``x`` given is this rank's data
+    shard already (training): all of it is routed, and the output is only
+    summed over the model axis."""
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
     if axis_info is None:
@@ -156,16 +173,19 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisI
                          "(repro_torch.parallel.sharding.shard_params)")
     batch_axes = axis_info.batch_axes
     n_batch = collectives.axis_size(batch_axes, mesh)
-    if (B * S) % n_batch:
-        batch_axes, n_batch = (), 1  # tiny decode batches: replicate tokens, keep EP/TP
-    rows = B * S // n_batch
-    i = collectives.axis_index(batch_axes, mesh) if batch_axes else 0
+    if local_batch:
+        gather_axes, rows, i = (), B * S, 0
+    else:
+        gather_axes = batch_axes if (B * S) % n_batch == 0 else ()  # tiny decode batches: replicate tokens
+        rows = B * S // collectives.axis_size(gather_axes, mesh)
+        i = collectives.axis_index(gather_axes, mesh) if gather_axes else 0
     first = collectives.axis_index(ma, mesh) * n_local if ep else 0
     out, aux = _moe_local(
         xf[i * rows:(i + 1) * rows], params["router"], params["w1"], params["wg"], params["w2"], cfg,
         first_expert=first, n_local_experts=n_local,
+        expert_inputs=lambda xx, gates: collectives.grad_psum(ma, mesh, xx, gates),
     )
-    out = collectives.regather(out, batch_axes, mesh, sum_names=(ma,))
-    if batch_axes:
-        aux = collectives.pmean(aux, batch_axes, mesh)
+    out = collectives.gather_blocks(out, gather_axes, mesh, sum_names=(ma,))
+    if local_batch or gather_axes:
+        aux = collectives.mean_of_shares(aux, batch_axes, mesh)
     return out.reshape(B, S, d), aux

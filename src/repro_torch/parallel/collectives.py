@@ -15,11 +15,30 @@ identity and nothing is sent.
 
 ``stats`` counts the all-reduces issued and their bytes (plain integers, as
 the kernels count their launches).
+
+**Training.** ``dist.all_reduce`` is invisible to autograd: the functions
+above run on a ``clone()``, so a backward pass through them is the identity.
+The training path therefore uses the autograd functions below, each with
+its backward written out for the port's SPMD model of a step: the loss is
+summed over the batch axes (each rank holds its share, and the gradients
+are summed over them at the end of the step) and held once over the model
+axis (its ranks compute the same share, bar the experts they own). So a sum
+over the batch axes is summed again in the backward pass, and a sum over
+the model axis is not:
+
+* :func:`gather_blocks` (the forward of :func:`regather`);
+* :func:`grad_psum` (the identity; its backward sums the cotangents: the
+  input of a partial product, whose other parts the other ranks compute);
+* :func:`mean_of_shares` (:func:`pmean`; its backward sums the cotangents
+  and divides).
+
+:func:`psum_` sums a list of tensors in place, a few flat buffers at a
+time: the gradient all-reduce.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import List, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -29,6 +48,10 @@ from repro_torch.parallel.axisinfo import Mesh
 AxisNames = Union[str, Sequence[str]]
 
 stats = {"calls": 0, "bytes": 0}
+
+# the most bytes :func:`psum_` packs into one flat buffer: few calls (gloo
+# costs milliseconds a call) with one copy of a bucket at a time
+BUCKET_BYTES = 1 << 28
 
 
 def _axes(names: AxisNames) -> tuple:
@@ -89,3 +112,118 @@ def regather(block: torch.Tensor, names: AxisNames, mesh: Mesh, sum_names: AxisN
     i = axis_index(names, mesh)
     full[i * block.shape[0]:(i + 1) * block.shape[0]] = block
     return psum(full, names + sum_names, mesh)
+
+
+# ------------------------------ training: collectives with their backward ------------------------------
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, block, names, sum_names, mesh):
+        ctx.names, ctx.mesh, ctx.rows = names, mesh, block.shape[0]
+        return regather(block, names, mesh, sum_names)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = axis_index(ctx.names, ctx.mesh) if ctx.names else 0
+        g = psum(g, ctx.names, ctx.mesh)
+        return g[i * ctx.rows:(i + 1) * ctx.rows], None, None, None
+
+
+def gather_blocks(block: torch.Tensor, names: AxisNames, mesh: Mesh, sum_names: AxisNames = ()) -> torch.Tensor:
+    """:func:`regather` under autograd. Backward: the cotangents summed over
+    ``names`` (every rank's loss share reads every block), this rank's block
+    of them; over ``sum_names`` the identity (the ranks there hold one
+    loss, each the whole cotangent)."""
+    return _GatherBlocks.apply(block, _axes(names), _axes(sum_names), mesh)
+
+
+class _GradPsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, names, mesh, *xs):
+        ctx.names, ctx.mesh = names, mesh
+        out = tuple(x.view_as(x) for x in xs)
+        return out if len(out) > 1 else out[0]
+
+    @staticmethod
+    def backward(ctx, *gs):
+        live = [g for g in gs if g is not None]
+        if live and axis_size(ctx.names, ctx.mesh) > 1:
+            flat = psum(torch.cat([g.float().reshape(-1) for g in live]), ctx.names, ctx.mesh)
+            out, k = [], 0
+            for g in gs:
+                if g is None:
+                    out.append(None)
+                    continue
+                out.append(flat[k:k + g.numel()].reshape(g.shape).to(g.dtype))
+                k += g.numel()
+            gs = out
+        return (None, None, *gs)
+
+
+def grad_psum(names: AxisNames, mesh: Mesh, *xs: torch.Tensor):
+    """The ``xs`` unchanged (a tuple when there are several). Backward:
+    each cotangent summed over ``names``, all of them in one all-reduce, in
+    f32 and cast back (with two ranks the same as a sum in the tensor's
+    own dtype). Put it where a value enters a product whose parts lie on
+    the ranks of ``names``: the tokens and gates that enter a rank's
+    experts."""
+    return _GradPsum.apply(_axes(names), mesh, *xs)
+
+
+class _MeanOfShares(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, names, mesh):
+        ctx.names, ctx.mesh = names, mesh
+        return pmean(x, names, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return pmean(g, ctx.names, ctx.mesh), None, None
+
+
+def mean_of_shares(x: torch.Tensor, names: AxisNames, mesh: Mesh) -> torch.Tensor:
+    """:func:`pmean` under autograd for a value that every rank over
+    ``names`` adds to its loss share. Backward: the cotangents averaged
+    over ``names`` (summed, as the shares are, then divided as the
+    forward divides)."""
+    return _MeanOfShares.apply(x, _axes(names), mesh)
+
+
+def psum_(tensors: List[torch.Tensor], names: AxisNames, mesh: Mesh) -> int:
+    """Sum ``tensors`` (contiguous, one dtype) over ``names`` in place, in
+    buckets: consecutive tensors are packed into one flat buffer of at most
+    ``BUCKET_BYTES`` (a tensor larger than that goes alone, without a
+    copy), each bucket one all-reduce. Returns the number of all-reduces."""
+    axes = _axes(names)
+    if mesh.axes_size(axes) == 1 or not tensors:
+        return 0
+    group = mesh.group(axes)
+    calls = 0
+
+    def reduce(bucket: List[torch.Tensor]) -> None:
+        nonlocal calls
+        if len(bucket) == 1:
+            flat = bucket[0]
+        else:
+            flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        stats["calls"] += 1
+        stats["bytes"] += flat.numel() * flat.element_size()
+        calls += 1
+        if len(bucket) > 1:
+            k = 0
+            for t in bucket:
+                t.copy_(flat[k:k + t.numel()].view(t.shape))
+                k += t.numel()
+
+    bucket: List[torch.Tensor] = []
+    size = 0
+    for t in tensors:
+        nbytes = t.numel() * t.element_size()
+        if bucket and size + nbytes > BUCKET_BYTES:
+            reduce(bucket)
+            bucket, size = [], 0
+        bucket.append(t)
+        size += nbytes
+    if bucket:
+        reduce(bucket)
+    return calls

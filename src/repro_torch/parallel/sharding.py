@@ -174,6 +174,29 @@ def shard_leaf(x, spec: P, axis_info: AxisInfo):
     return x[tuple(index)]
 
 
+def gather_leaf(x, spec: P, axis_info: AxisInfo):
+    """The full value of which ``x`` is this rank's block under ``spec``,
+    on every rank (the inverse of :func:`shard_leaf`): one all-reduce for
+    each dim ``spec`` names (:func:`repro_torch.parallel.collectives.regather`)."""
+    from repro_torch.parallel import collectives
+
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            axes = (entry,) if isinstance(entry, str) else tuple(entry)
+            x = collectives.regather(x.movedim(dim, 0).contiguous(), axes, axis_info.mesh).movedim(0, dim)
+    return x
+
+
+def gather_params(params, cfg: ModelConfig, axis_info: AxisInfo):
+    """The full params (or moments) on every rank, from this rank's
+    (:func:`shard_params`'s inverse: the expert weights regathered over the
+    model axis); every rank calls it."""
+    from repro_torch.convert import param_shapes
+
+    specs = local_param_specs(param_shapes(cfg), cfg, axis_info)  # the full shapes decide the specs
+    return _map(lambda _, x, s: gather_leaf(x, s, axis_info) if len(s) else x, params, specs)
+
+
 def local_param_specs(params, cfg: ModelConfig, axis_info: AxisInfo):
     """The specs the port applies to a params tree: the model axis's entries
     of ``param_shardings`` on the expert weights (the leaves with an
@@ -196,12 +219,20 @@ def local_param_specs(params, cfg: ModelConfig, axis_info: AxisInfo):
     return _map(one, specs, axes)
 
 
-def shard_params(params, cfg: ModelConfig, axis_info: AxisInfo):
+def shard_params(params, cfg: ModelConfig, axis_info: AxisInfo, copy: bool = False):
     """This rank's params: every leaf replicated but the expert weights,
     which keep this rank's experts (or ffn columns); see
-    :func:`local_param_specs`. Works on tensors and on numpy arrays."""
+    :func:`local_param_specs`. Works on tensors and on numpy arrays. The
+    blocks are views unless ``copy`` (a view keeps the whole leaf alive)."""
     specs = local_param_specs(params, cfg, axis_info)
-    return _map(lambda _, x, s: shard_leaf(x, s, axis_info) if len(s) else x, params, specs)
+
+    def one(_, x, s):
+        if not len(s):
+            return x
+        block = shard_leaf(x, s, axis_info)
+        return block.clone() if copy else block
+
+    return _map(one, params, specs)
 
 
 def pad_pages(cache, multiple: int):

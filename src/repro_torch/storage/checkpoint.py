@@ -30,6 +30,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.analysis.lockwatch import make_lock
 from repro_torch.core.cluster import Session
+from repro_torch.parallel.axisinfo import AxisInfo
 
 
 @dataclasses.dataclass
@@ -56,6 +57,16 @@ def _leaf_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     if isinstance(tree, (list, tuple)):
         return [pl for i, v in enumerate(tree) for pl in _leaf_paths(v, f"{prefix}[{i}]")]
     return [(prefix, tree)]
+
+
+def _spec_leaves(tree) -> list:
+    """The specs of a spec tree in the order of :func:`_leaf_paths`: a spec
+    (a tuple) is a leaf, not a node."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _spec_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _spec_leaves(v)]
+    return [tree]
 
 
 def _structure(tree):
@@ -194,23 +205,29 @@ class BlobCheckpointer:
         return t
 
     # -- restore ----------------------------------------------------------------------
-    def restore(self, step: Optional[int] = None, device="cuda", shardings: Any = None) -> Any:
-        """Rebuild the state tree (any retained step; the latest by default)
-        as tensors on ``device``."""
-        if shardings is not None:
-            raise NotImplementedError("restoring onto a mesh is not ported yet (ROADMAP Queue 1, item 6)")
-        device = resolve_device(device)
+    def _record(self, step: Optional[int]) -> CheckpointRecord:
         with self._lock:
             if not self.checkpoints:
                 raise RuntimeError("no checkpoints saved")
             if step is None:
-                rec = self.checkpoints[-1]
-            else:
-                rec = next(c for c in self.checkpoints if c.step == step)
-        leaves = []
-        for info in self.layout:
-            res = self.handle.read(info.offset, info.size, version=rec.version)
-            leaves.append(_from_bytes(res.data, info, device))
+                return self.checkpoints[-1]
+            return next(c for c in self.checkpoints if c.step == step)
+
+    def _read(self, info: LeafInfo, rec: CheckpointRecord) -> np.ndarray:
+        return self.handle.read(info.offset, info.size, version=rec.version).data
+
+    def restore(self, step: Optional[int] = None, device="cuda", shardings: Any = None,
+                axis_info: Optional[AxisInfo] = None) -> Any:
+        """Rebuild the state tree (any retained step; the latest by default)
+        as tensors on ``device``. With ``shardings`` (a spec tree shaped
+        like the state) and ``axis_info``, this rank's blocks on a mesh of
+        any shape (elastic restart): :func:`restore_onto_mesh`, which every
+        other rank of the mesh calls at the same time."""
+        if shardings is not None:
+            return restore_onto_mesh(self, shardings, axis_info, step=step, device=device)
+        device = resolve_device(device)
+        rec = self._record(step)
+        leaves = [_from_bytes(self._read(info, rec), info, device) for info in self.layout]
         return _unflatten(self._structure, leaves)
 
     # -- retention ----------------------------------------------------------------------
@@ -229,3 +246,45 @@ class BlobCheckpointer:
                 "checkpoints": [dataclasses.asdict(c) for c in self.checkpoints],
             }
         )
+
+
+def restore_onto_mesh(ckpt: Optional[BlobCheckpointer], shardings: Any, axis_info: AxisInfo,
+                      step: Optional[int] = None, device="cuda") -> Any:
+    """Restore a checkpoint onto ``axis_info``'s mesh, the JAX package's
+    ``restore(shardings=)``: every rank of the mesh calls this. The blob
+    store lives in one process, so ``ckpt`` is the checkpointer on rank 0
+    and None on the others. Rank 0 sends the layout, then reads each leaf
+    of the checkpoint (the full logical state) and broadcasts its bytes;
+    every rank keeps its block of the leaf under its spec in ``shardings`` (:func:`repro_torch.parallel.sharding.shard_leaf`).
+    Returns this rank's state tree on ``device``."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel.sharding import shard_leaf
+
+    device = resolve_device(device)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if rank == 0:
+        if ckpt is None:
+            raise ValueError("rank 0 holds the checkpoints: pass its checkpointer")
+        rec = ckpt._record(step)
+        header = [ckpt.layout, ckpt._structure]
+    else:
+        header = [None, None]
+    if dist.is_initialized():
+        dist.broadcast_object_list(header, src=0)
+    layout, structure = header
+    specs = _spec_leaves(shardings)
+    if len(specs) != len(layout):
+        raise ValueError(f"shardings has {len(specs)} leaves, the checkpoint {len(layout)}")
+    leaves = []
+    for info, spec in zip(layout, specs):
+        if rank == 0:
+            raw = torch.from_numpy(np.array(ckpt._read(info, rec), dtype=np.uint8)).to(device)
+        else:
+            raw = torch.empty((info.size,), dtype=torch.uint8, device=device)
+        if dist.is_initialized():
+            dist.broadcast(raw, src=0)
+        full = raw.view(getattr(torch, info.dtype)).reshape(info.shape)  # dtype names are torch's
+        # a block is a view: copy it, so that the full leaf is freed
+        leaves.append(shard_leaf(full, spec, axis_info).clone() if len(spec) else full)
+    return _unflatten(structure, leaves)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
@@ -75,24 +76,41 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves(tree)))
 
 
+def _chunks(*ts: torch.Tensor, size: int = 1 << 24):
+    """Matching flat chunks of ``size`` elements of same-shaped tensors
+    (views: writes reach the tensors); the tensors whole when one is not
+    contiguous."""
+    if not all(t.is_contiguous() for t in ts):
+        yield ts
+        return
+    flat = [t.view(-1) for t in ts]
+    for a in range(0, flat[0].numel(), size):
+        yield tuple(t[a:a + size] for t in flat)
+
+
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig):
+def adamw_update(params, grads, state, cfg: AdamWConfig, gnorm: Optional[torch.Tensor] = None):
     """One AdamW step: gradients clipped to a global norm of
     ``grad_clip``, bias-corrected moments, decoupled weight decay. ``params``
     and ``state``'s moments are updated in place; returns (params, the new
-    state, ``{"grad_norm", "lr"}``)."""
+    state, ``{"grad_norm", "lr"}``). ``gnorm``, when given, is the global
+    norm of the whole gradient (across ranks, of which ``grads`` holds this
+    rank's blocks); by default the norm of ``grads``."""
     step = state["step"] + 1
     dev = step.device
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = (_f32(cfg.grad_clip, dev) / gnorm.clamp_min(1e-12)).clamp_max(1.0)
     lr = lr_at(step, cfg)
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - torch.pow(_f32(b1, dev), step.float())
     bc2 = 1 - torch.pow(_f32(b2, dev), step.float())
-    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]), leaves(state["v"])):
-        g = g.float() * scale
-        m.copy_(b1 * m + (1 - b1) * g)
-        v.copy_(b2 * v + (1 - b2) * g * g)
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
+    for leaf in zip(leaves(params), leaves(grads), leaves(state["m"]), leaves(state["v"])):
+        # elementwise, so a chunk at a time gives the same numbers with a chunk's temporaries
+        for p, g, m, v in _chunks(*leaf):
+            g = g.float() * scale
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * g * g)
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * p.float()
+            p.copy_(p.float() - lr * delta)
     return params, {"m": state["m"], "v": state["v"], "step": step}, {"grad_norm": gnorm, "lr": lr}

@@ -1,17 +1,17 @@
-"""The training step, the counterpart of :mod:`repro.train.trainer`, on one
-device: loss, gradients (microbatches accumulated in f32), AdamW."""
+"""The training step, the counterpart of :mod:`repro.train.trainer`: loss,
+gradients (microbatches accumulated in f32), AdamW; on one device or
+across the ranks of a mesh."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import collectives
+from repro_torch.parallel.axisinfo import AxisInfo
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update, leaves
-
-_SHARDED = "sharded training is not ported yet (ROADMAP Queue 1, item 6)"
-
 
 def _requires_grad(tree):
     """The params as leaves that autograd differentiates (views of the same
@@ -21,31 +21,94 @@ def _requires_grad(tree):
     return tree.detach().requires_grad_(True)
 
 
-def make_train_step(model, cfg: ModelConfig, opt_cfg: AdamWConfig, axis_info=None, param_shardings=None):
+def n_microbatches(batch_rows: int, grad_accum: int, n_batch_shards: int = 1) -> int:
+    """The JAX package's rule: the most microbatches up to ``grad_accum``
+    that divide the batch into microbatches that divide over the batch
+    shards; 1 when the batch is smaller than the shard count."""
+    A = max(1, min(grad_accum, batch_rows // max(n_batch_shards, 1)))
+    while A > 1 and (batch_rows % A or (batch_rows // A) % n_batch_shards):
+        A -= 1
+    return A
+
+
+def reduce_gradients(grads: List[torch.Tensor], axis_info: AxisInfo) -> None:
+    """Sum this rank's f32 gradients over the batch axes, in place, in a few
+    flat buffers (:func:`collectives.psum_`): every leaf, the experts'
+    blocks too (their data replicas). The sum is the one GSPMD inserts."""
+    collectives.psum_(grads, axis_info.batch_axes, axis_info.mesh)
+
+
+def _sharded_axes(cfg: ModelConfig, axis_info: AxisInfo) -> List[tuple]:
+    """For each leaf in :func:`leaves` order, the mesh axes it is split
+    over on this rank (empty: replicated)."""
+    from repro_torch.convert import param_shapes
+    from repro_torch.parallel.sharding import local_param_specs
+
+    specs = local_param_specs(param_shapes(cfg), cfg, axis_info)
+    out = []
+    for spec in leaves(specs):
+        axes = []
+        for e in spec:
+            axes += [] if e is None else [e] if isinstance(e, str) else list(e)
+        out.append(tuple(axes))
+    return out
+
+
+def _global_norm(grads: List[torch.Tensor], split: List[tuple], axis_info: AxisInfo) -> torch.Tensor:
+    """The norm of the whole gradient: each split leaf's sum of squares
+    summed over the axes it is split over (one all-reduce for each such
+    set of axes), the replicated leaves' counted once."""
+    total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    parts: Dict[tuple, torch.Tensor] = {}
+    for g, axes in zip(grads, split):
+        sq = torch.sum(torch.square(g.float()))
+        if axes:
+            parts[axes] = parts.get(axes, 0) + sq
+        else:
+            total = total + sq
+    for axes, sq in parts.items():
+        total = total + collectives.psum(sq, axes, axis_info.mesh)
+    return torch.sqrt(total)
+
+
+def make_train_step(model, cfg: ModelConfig, opt_cfg: AdamWConfig, axis_info: Optional[AxisInfo] = None,
+                    param_shardings=None):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``params`` and the optimizer's moments are updated in place.
 
-    ``cfg.grad_accum > 1`` splits the batch into ``A`` microbatches, ``A``
-    the largest count up to ``grad_accum`` that divides the batch (as the
-    JAX package's rule on one device): the first runs on its own, then the
-    rest, their gradients summed in f32 and divided by ``A``, the loss and
-    the metrics averaged. ``metrics`` holds the model's metrics, ``loss``,
-    ``grad_norm`` and ``lr`` as 0-dim tensors on the device."""
-    if axis_info is not None or param_shardings is not None:
-        raise NotImplementedError(_SHARDED)
+    ``cfg.grad_accum > 1`` splits the batch into ``A`` microbatches
+    (:func:`n_microbatches`): the first runs on its own, then the rest,
+    their gradients summed in f32 and divided by ``A``, the loss and the
+    metrics averaged. ``metrics`` holds the model's metrics, ``loss``,
+    ``grad_norm`` and ``lr`` as 0-dim tensors on the device.
+
+    Across ranks (``axis_info``): ``batch`` is the global batch on every
+    rank, as the JAX package's jitted step takes it, and ``params`` this
+    rank's (:func:`repro_torch.parallel.sharding.shard_params`: the experts
+    split over the model axis). Each microbatch is a slice of the global
+    batch, and each rank computes on its block of the microbatch's rows
+    (``train_loss(axis_info=)``: rows ``a*B/A + i*B/(A*n) ...`` for rank
+    ``i`` of ``n`` batch shards). After the accumulation every gradient is
+    summed over the batch axes (:func:`reduce_gradients`), the loss and
+    metrics too (one all-reduce); the norm that clips the update counts
+    each expert once. Replicated leaves then end the step equal on every
+    rank, bit for bit, and expert leaves equal over the batch axes.
+    ``param_shardings`` is taken for the JAX package's signature, where it
+    is a layout hint with no numeric effect; the port's layout is
+    :func:`repro_torch.parallel.sharding.local_param_specs`."""
+    n_shards = axis_info.n_batch_shards if axis_info is not None else 1
+    split = _sharded_axes(cfg, axis_info) if axis_info is not None else None
 
     def grad_of(params, batch):
         tracked = _requires_grad(params)
-        loss, metrics = model.train_loss(tracked, batch)
+        loss, metrics = model.train_loss(tracked, batch, axis_info=axis_info)
         grads = torch.autograd.grad(loss, leaves(tracked))
         # contiguous f32 tensors of their own, so that later microbatches add into them
         return loss.detach(), {k: m.detach() for k, m in metrics.items()}, [g.float().contiguous() for g in grads]
 
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
         B0 = next(iter(batch.values())).shape[0]
-        A = max(1, min(cfg.grad_accum, B0))
-        while A > 1 and B0 % A:
-            A -= 1
+        A = n_microbatches(B0, cfg.grad_accum, n_shards)
         micro = [{k: v[i * (B0 // A):(i + 1) * (B0 // A)] for k, v in batch.items()} for i in range(A)]
         loss, metrics, grads = grad_of(params, micro[0])
         for mb in micro[1:]:
@@ -60,7 +123,16 @@ def make_train_step(model, cfg: ModelConfig, opt_cfg: AdamWConfig, axis_info=Non
                 acc.div_(a)
             loss = loss / a
             metrics = {k: v / a for k, v in metrics.items()}
-        params, opt_state, opt_metrics = adamw_update(params, _unflatten(params, grads), opt_state, opt_cfg)
+        gnorm = None
+        if axis_info is not None:
+            reduce_gradients(grads, axis_info)
+            names = sorted(metrics)
+            total = collectives.psum(torch.stack([loss] + [metrics[k].float() for k in names]),
+                                     axis_info.batch_axes, axis_info.mesh)
+            loss, metrics = total[0], {k: total[i + 1] for i, k in enumerate(names)}
+            gnorm = _global_norm(grads, split, axis_info)
+        params, opt_state, opt_metrics = adamw_update(params, _unflatten(params, grads), opt_state, opt_cfg,
+                                                      gnorm=gnorm)
         return params, opt_state, dict(metrics, loss=loss, **opt_metrics)
 
     return train_step

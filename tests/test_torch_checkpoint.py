@@ -28,6 +28,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import opt_state_from_jax, params_from_jax  # noqa: E402
 from repro_torch.data.pipeline import PipelineConfig, TokenPipeline, write_token_corpus  # noqa: E402
 from repro_torch.launch.train import bigram_corpus, corpus_tokens  # noqa: E402
+from repro_torch.parallel.axisinfo import AxisInfo, Mesh  # noqa: E402
+from repro_torch.parallel.sharding import P  # noqa: E402
 from repro_torch.storage.checkpoint import BlobCheckpointer  # noqa: E402
 
 
@@ -88,8 +90,19 @@ def test_restore_gives_the_saved_tensors_on_the_device(session):
     assert len(got) == len(want)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        ck.restore(device="cpu", shardings=object())
+    # onto a mesh: a spec tree like the state; rank 1 of a (data 2, model 1)
+    # mesh keeps its half of a leaf split over "data" (no process group: this
+    # process reads the blob itself)
+    ai = AxisInfo(Mesh((2, 1), ("data", "model"), rank=1), batch_axes=("data",))
+    specs = jax.tree_util.tree_map(lambda _: P(), port)
+    specs["params"]["embed"]["table"] = P("data")
+    on_mesh = ck.restore(device="cpu", shardings=specs, axis_info=ai)
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(on_mesh), jax.tree_util.tree_leaves(port)):
+        if jax.tree_util.keystr(path) == "['params']['embed']['table']":
+            b = b[b.shape[0] // 2:]
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    with pytest.raises(ValueError, match="leaves"):
+        ck.restore(device="cpu", shardings={"params": P()}, axis_info=ai)
 
 
 # ------------------------------ ports of tests/test_storage.py ------------------------------

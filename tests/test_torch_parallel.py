@@ -248,13 +248,39 @@ def test_meshes_without_a_process_group():
 
 
 def test_sharded_training_raises():
-    """Training across ranks is the next slice: every family's train_loss
-    refuses an axis_info before it touches a collective."""
-    ai = mesh_info("2x2")
+    """Every non-MoE family's ``train_loss`` under an axis_info of a
+    (data 2, model 2) mesh (no collective runs: only a MoE's do) computes
+    on the rank's rows of the global batch (on every row, when the rows do
+    not divide over the data axis); the model ranks' shares are equal, and
+    the data ranks' shares of the loss and metrics sum to the
+    single-device values, their gradients to its gradients."""
+    rng = np.random.default_rng(0)
     for arch in ("llama3_2-1b", "mamba2-370m", "zamba2-2.7b", "seamless-m4t-medium"):
-        model = build_model(get_config(arch).smoke())
-        with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-            model.train_loss({}, {}, axis_info=ai)
+        cfg = get_config(arch).smoke()
+        model = build_model(cfg)
+        params = model.init(0, "cpu")
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16))),
+                 "labels": torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16)))}
+        batch["labels"][1, :9] = -1
+        if cfg.family in ("encdec", "audio"):
+            batch["enc_embeds"] = torch.from_numpy(rng.standard_normal((4, 16, cfg.d_model), dtype=np.float32))
+        leaves = [params["embed"]["table"]]
+
+        def run(axis_info, batch):
+            p = dict(params, embed={"table": leaves[0].detach().requires_grad_(True)})
+            loss, metrics = model.train_loss(p, batch, axis_info=axis_info)
+            return loss.detach(), metrics, torch.autograd.grad(loss, p["embed"]["table"])[0]
+
+        for rows in (4, 3):  # 3 rows do not divide over the data axis: every rank takes half of all
+            part = {k: v[:rows] for k, v in batch.items()}
+            want = run(None, part)
+            shares = [run(mesh_info("2x2", rank), part) for rank in range(4)]
+            for a, b in ((0, 1), (2, 3)):
+                assert torch.equal(shares[a][0], shares[b][0]) and torch.equal(shares[a][2], shares[b][2])
+            torch.testing.assert_close(shares[0][0] + shares[2][0], want[0], rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(shares[0][2] + shares[2][2], want[2], rtol=1e-6, atol=1e-6)
+            for k in want[1]:
+                torch.testing.assert_close(shares[0][1][k] + shares[2][1][k], want[1][k], rtol=1e-6, atol=1e-6)
 
 
 # ------------------------------ collectives across spawned ranks ------------------------------

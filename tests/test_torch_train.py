@@ -29,6 +29,7 @@ from repro.train.trainer import make_train_step as jax_make_train_step  # noqa: 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import opt_state_from_jax, params_from_jax  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch.mesh import make_axis_info, make_mesh_for_devices  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.lm import build_model  # noqa: E402
@@ -308,14 +309,27 @@ def test_train_steps_with_grad_accum_match_jax(arch):
 
 
 def test_sharded_and_pallas_training_raise():
-    _, cfg = configs("llama3_2-1b")
+    """The sharded step on a one-rank mesh (every collective the identity)
+    gives the single-device step's numbers; the launcher's model axis must
+    divide the world (one process here), as the JAX launcher's mesh
+    requires; a Pallas config and an unknown impl still raise."""
+    _, cfg = configs("mixtral-8x7b", n_layers=2)
     model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        make_train_step(model, cfg, opt.AdamWConfig(), axis_info=object())
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
+    ai = make_axis_info(make_mesh_for_devices())
+    batch = torch_batch(make_batch(cfg, B=8, S=16))
+    out = []
+    for axis_info in (None, ai):
+        params = model.init(0, "cpu")
+        step = make_train_step(model, cfg, opt.AdamWConfig(), axis_info=axis_info)
+        out.append(step(params, opt.adamw_init(params), batch))
+    (p1, s1, m1), (p2, s2, m2) = out
+    for k in m1:
+        close(m2[k], m1[k], 1e-6)
+    for a, b in zip(opt.leaves(s2["m"]) + opt.leaves(p2), opt.leaves(s1["m"]) + opt.leaves(p1)):
+        close(a, b, 1e-6)
+    with pytest.raises(ValueError, match="model_parallel=2"):
         train("llama3_2-1b", smoke=True, model_parallel=2, device="cpu")
     pallas = build_model(dataclasses.replace(cfg, use_pallas=True))
-    batch = torch_batch(make_batch(cfg))
     with pytest.raises(NotImplementedError, match="no backward"):
         pallas.train_loss(model.init(0, "cpu"), batch)
     with pytest.raises(ValueError, match="impl"):
