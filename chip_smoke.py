@@ -182,12 +182,25 @@ JAX package), and it:
     gradient all-reduce's calls, bytes and ms a step, peak memory and the
     card's free memory (``mem_get_info``) after the first step; checks
     that neither kernel ran;
-17. prints a JSON line with each kernel's launches, error, times and grid at
+17. the dry run (``repro_torch.launch.dryrun``, fake tensors on fake
+    ranks, nothing allocated), held to the card in about 40 s: (a) its
+    CLI for ``llama3_2-1b`` at ``decode_32k`` and ``train_4k`` on the 16 x
+    16 mesh, in subprocesses, printing each rank's memory, FLOPs and
+    dominant roofline term; (b) beside them, the dry run of step 12's
+    config on one rank for a prefill of 8 x 2048 tokens, one decode step
+    over those rows' pages and step 12's training step: the predicted
+    argument bytes must equal the bytes the card holds for the same
+    params, cache and batch (``memory_allocated``) but for the
+    allocator's rounding to 512 bytes a storage; prints the card's peak
+    beside the predicted total and max(compute, memory) of the roofline
+    over the measured time (the prefill and decode step timed here, both
+    kernels launching; the training step from step 12);
+18. prints a JSON line with each kernel's launches, error, times and grid at
     the main-path shape (and its times at the danube, mixtral, zamba2,
     mistral-large and seamless shapes, and its launches in steps 5-14, in
-    step 15's sharded decode steps and in step 16, each rank's) and
-    the measures of steps 11-16, and, as the last line, ``{"ok": true,
-    "device": {...}}``.
+    step 15's sharded decode steps, in step 16, each rank's, and in step
+    17) and the measures of steps 11-17, and, as the last line, ``{"ok":
+    true, "device": {...}}``.
 
 Any failure exits nonzero before the last line is printed.
 """
@@ -3387,6 +3400,171 @@ def _expert_mask(name: str) -> list:
     return [bool(len(s)) for s in _paths(shd.local_param_specs(param_shapes(cfg), cfg, ai)).values()] * 3
 
 
+# ------------------------------ step 17: the dry run against the card ------------------------------
+DRYRUN_CLI_SHAPES = ("decode_32k", "train_4k")  # llama3_2-1b on the 16 x 16 mesh of fake ranks
+DRYRUN_BUDGET_S = 60.0  # what step 17 should take; the CLI's cells are killed at twice that
+ALLOC_ROUND = 512  # the caching allocator rounds every block up to a multiple of 512 bytes
+
+
+def held_bytes(build) -> tuple:
+    """``build()``, the bytes the card holds for it (``memory_allocated``
+    diffed around it) and its number of distinct storages."""
+    from repro_torch.launch.cost import tensors
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = build()
+    torch.cuda.synchronize()
+    n = len({id(t.untyped_storage()) for t in tensors(out)})
+    return out, torch.cuda.memory_allocated() - before, n
+
+
+def check_held(kind: str, plan: dict, parts) -> dict:
+    """The dry run's argument bytes against the bytes the card holds for
+    the same arguments (``parts``: ``held_bytes``' counts): equal but for
+    the allocator's rounding of each storage."""
+    held, n = sum(p[1] for p in parts), sum(p[2] for p in parts)
+    predicted = plan["bytes_per_device"]["arguments"]
+    print(f"  {kind}: predicted argument bytes {predicted}, the card holds {held} in {n} storages "
+          f"(difference {held - predicted}, at most {ALLOC_ROUND} a storage)", flush=True)
+    check(0 <= held - predicted < ALLOC_ROUND * n, f"dry run {kind}: predicted {predicted} argument bytes, "
+          f"the card holds {held}")
+    return {"predicted_arguments": predicted, "held_arguments": held, "storages": n}
+
+
+def synced_ms(fn, reps: int) -> float:
+    """Median of ``reps`` synchronised calls between CUDA events: what the
+    caller waits, host dispatch included."""
+    spans = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        spans.append(start.elapsed_time(end))
+    return statistics.median(spans)
+
+
+def dryrun_cli(shape: str) -> subprocess.Popen:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "llama3_2-1b",
+                             "--shape", shape], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def cli_records(procs: dict, t0: float) -> dict:
+    """Each CLI cell's record, read as its process exits (killed at twice
+    the step's budget)."""
+    out = {}
+    for shape, p in procs.items():
+        try:
+            stdout, stderr = p.communicate(timeout=max(1.0, 2 * DRYRUN_BUDGET_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            fail(f"the dry run of llama3_2-1b {shape} did not end within {2 * DRYRUN_BUDGET_S:.0f} s")
+        check(p.returncode == 0, f"the dry run of {shape} exited {p.returncode}: {stderr[-2000:]}")
+        rec = json.loads(stdout.strip().splitlines()[-1])
+        check(rec.get("ok") is True and "error" not in rec, f"the dry run of {shape} failed: {rec}")
+        mem, roof = rec["bytes_per_device"], rec["roofline"]
+        print(f"  (a) CLI llama3_2-1b {shape} on {rec['mesh']} ({rec['n_devices']} fake ranks, {rec['run_s']} s): "
+              f"{mem['total'] / 2**30:.2f} GiB a rank (arguments {mem['arguments'] / 2**30:.2f}, temps "
+              f"{mem['temps'] / 2**30:.2f}), {rec['hlo_flops_per_device']:.4g} FLOPs, "
+              f"{rec['hlo_bytes_per_device']:.4g} bytes, {rec['collective_count']:.0f} all-reduces; "
+              f"dominant {roof['dominant']} (compute {roof['compute_s']:.4g} s, memory {roof['memory_s']:.4g} s, "
+              f"collective {roof['collective_s']:.4g} s)", flush=True)
+        out[shape] = {k: rec[k] for k in ("bytes_per_device", "hlo_flops_per_device", "hlo_bytes_per_device",
+                                          "collective_count", "roofline", "run_s")}
+    return out
+
+
+def dryrun_phase(dev, card, kernels, training) -> dict:
+    """Step 17: (a) ``python -m repro_torch.launch.dryrun`` for two
+    llama3_2-1b cells on the 16 x 16 mesh of fake ranks, in subprocesses
+    beside (b): the dry run of step 12's config on one rank (no group) for
+    a prefill of 8 x 2048 tokens, one decode step over those rows' pages
+    (33 a row: 32 full and a headroom page) and step 12's training step,
+    held to the card: the predicted argument bytes against the bytes the
+    card holds for the same params, cache and batch, the card's peak beside
+    the predicted total, and max(compute_s, memory_s) over the measured
+    time (synchronised calls: the prefill and the decode step timed here,
+    the training step in step 12)."""
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.models.lm import build_model
+    from repro_torch.train.optimizer import adamw_init
+
+    t0 = time.perf_counter()
+    procs = {shape: dryrun_cli(shape) for shape in DRYRUN_CLI_SHAPES}
+    try:
+        cfg = get_train_config()
+        B, S = TRAIN_ROWS, TRAIN_SEQ
+        S_dec = S + cfg.kv_page_tokens  # the prefill's pages and its headroom page
+        plans = {"prefill": dryrun.plan(cfg, "prefill", B, S), "decode": dryrun.plan(cfg, "decode", B, S_dec),
+                 "train": dryrun.plan(cfg, "train", B, S)}
+        print(f"  (b) dry runs of llama3_2-1b on one rank in {time.perf_counter() - t0:.1f} s", flush=True)
+        model = build_model(cfg)
+        params = held_bytes(lambda: model.init(seed=0, device=dev))
+        batch = held_bytes(lambda: specs.concrete_batch(cfg, B, S, "prefill", device=dev))
+        tok = held_bytes(lambda: torch.zeros((B,), dtype=torch.int32, device=dev))
+        res = {"prefill": check_held("prefill", plans["prefill"], (params, batch))}
+        empty = held_bytes(lambda: model.init_cache(B, S_dec, device=dev))
+        res["decode"] = check_held("decode", plans["decode"], (params, empty, tok))
+        del empty
+        opt = held_bytes(lambda: adamw_init(params[0]))
+        train_batch = held_bytes(lambda: specs.concrete_batch(cfg, B, S, "train", device=dev))
+        res["train"] = check_held("train", plans["train"], (params, opt, train_batch))
+        del opt, train_batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        for k in kernels:
+            k.launches = 0
+        p, tokens, t = params[0], batch[0]["tokens"], tok[0]
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, cache = model.prefill(p, tokens)
+        torch.cuda.synchronize()
+        res["prefill"]["card_peak"] = res["prefill"]["held_arguments"] + torch.cuda.max_memory_allocated() - base
+        res["prefill"]["ms"] = synced_ms(lambda: model.prefill(p, tokens), reps=3)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model.decode_step(p, cache, t)  # the token lands at position S, in the headroom page
+        torch.cuda.synchronize()
+        res["decode"]["card_peak"] = res["decode"]["held_arguments"] + torch.cuda.max_memory_allocated() - base
+        res["decode"]["ms"] = synced_ms(lambda: model.decode_step(p, cache, t), reps=10)
+        res["launches"] = {"flash_attention": kernels[0].launches, "paged_attention": kernels[1].launches}
+        check(all(n > 0 for n in res["launches"].values()), f"a kernel did not run in step 17: {res['launches']}")
+        res["train"]["card_peak"] = int(training["peak_gib"] * 2**30)
+        res["train"]["ms"] = training["step_ms"]
+        del cache, params, batch, tok, p, tokens, t
+        gc.collect()
+        torch.cuda.empty_cache()
+        for kind in ("prefill", "decode", "train"):
+            plan, r = plans[kind], res[kind]
+            roof = plan["roofline"]
+            r.update(predicted_total=plan["bytes_per_device"]["total"], flops=plan["hlo_flops_per_device"],
+                     hbm_bytes=plan["hlo_bytes_per_device"], compute_s=roof["compute_s"], memory_s=roof["memory_s"],
+                     roofline_share=max(roof["compute_s"], roof["memory_s"]) / (r["ms"] / 1e3))
+            print(f"  {kind}: predicted total {r['predicted_total'] / 2**30:.2f} GiB, the card's peak "
+                  f"{r['card_peak'] / 2**30:.2f} GiB (arguments held plus the peak above them"
+                  f"{'; step 12' if kind == 'train' else ''}); {r['flops']:.4g} FLOPs and {r['hbm_bytes']:.4g} "
+                  f"bytes of the plain path: compute {roof['compute_s'] * 1e3:.4g} ms, memory "
+                  f"{roof['memory_s'] * 1e3:.4g} ms; measured {r['ms']:.4g} ms"
+                  f"{' (step 12)' if kind == 'train' else ''}: max(compute, memory) / measured "
+                  f"{r['roofline_share']:.4g} ({card})", flush=True)
+        res["cli"] = cli_records(procs, t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"  step 17 in {res['seconds']:.1f} s (budget {DRYRUN_BUDGET_S:.0f} s; {card})", flush=True)
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -3659,7 +3837,13 @@ def main() -> None:
           flush=True)
     train_sharded = train_sharded_phase(card)
 
-    # 17. results
+    # 17. the dry run on fake ranks, and held to the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("dry run:", flush=True)
+    dry = dryrun_phase(dev, card, kernels, training)
+
+    # 18. results
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:79"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -3680,6 +3864,7 @@ def main() -> None:
             "launches_sharded": {cell: [n[name] for n in sharded[cell]["launches"]]
                                  for cell in ("llama", "mixtral", "mistral")},
             "launches_train_sharded": [n[name] for n in train_sharded["launches"]],
+            "launches_dryrun": dry["launches"][name],
             "shapes": rows[name], **grids[name],
         })
     measures = ("prefill_ms", "decode_step_ms", "decode_step_least_ms", "decode_tok_s", "build_peak_gib",
@@ -3696,7 +3881,7 @@ def main() -> None:
                       "training": {k: training[k] for k in train_measures},
                       "sky": {"card": card, **{k: sky[k] for k in sky_measures}},
                       "federated_sky": {"card": card, **{k: fed_sky[k] for k in fed_measures}},
-                      "sharded": sharded, "train_sharded": train_sharded}), flush=True)
+                      "sharded": sharded, "train_sharded": train_sharded, "dryrun": dry}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

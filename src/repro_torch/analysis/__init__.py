@@ -1,12 +1,12 @@
-"""The lock hierarchy, the runtime lock watchdog and the interleaving explorer of the storage core.
+"""The lock hierarchy, the runtime lock watchdog, the interleaving explorer and the lint of the storage core.
 
 Copies of :mod:`repro.analysis.lock_order` (the declared global lock
 hierarchy) and :mod:`repro.analysis.lockwatch` (the opt-in runtime watchdog,
 ``REPRO_LOCKWATCH=1``), which :mod:`repro_torch.core` imports at module
 load, and of :mod:`repro.analysis.schedules` (the deterministic interleaving
-explorer; its scenario builders import :mod:`repro_torch.core` lazily). The
-static lint is not copied: the repo's ``tools/lint_concurrency.py`` lints
-this package against the same hierarchy.
+explorer; its scenario builders import :mod:`repro_torch.core` lazily), and
+of :mod:`repro.analysis.lint` (the static lock-discipline lint, which checks
+this package against the same hierarchy).
 
 This package must stay import-light: nothing here may import
 ``repro_torch.core``.

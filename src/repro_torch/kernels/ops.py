@@ -221,11 +221,16 @@ def paged_update(
     and ``pool_v`` IN PLACE and returns them with a new ``page_pos``: an
     int8 pool gets the token quantized, its scales written in place into
     ``scale_k``/``scale_v``, and returns ``(pool_k, pool_v, page_pos,
-    scale_k, scale_v)``. Rows whose target page is not local to
-    ``[0, P_local)`` are dropped (the JAX version makes them positive
-    out-of-bounds ids for its dropping scatter; a torch index would wrap a
-    negative id or fault on a large one), which costs one host
-    synchronisation to select the kept rows.
+    scale_k, scale_v)``.
+
+    Rows whose target page is not local to ``[0, P_local)`` are dropped, as
+    the JAX version's scatter drops its out-of-bounds ids, with no host
+    synchronisation and no shape that depends on the data (a torch index
+    would wrap a negative id or fault on a large one): every row writes,
+    but a dropped row writes the first kept row's bytes to the first kept
+    row's ``(page, slot)``, so every write there is the same bytes and
+    their order cannot matter. When no row is kept, every row writes back
+    the bytes already at ``(0, 0)``.
     """
     quant = pool_k.dtype == torch.int8
     if quant and (scale_k is None or scale_v is None):
@@ -237,18 +242,26 @@ def paged_update(
     slot = pos % T
     b_idx = torch.arange(B, device=tables.device)
     local = tables[b_idx, r].long() - page_offset
-    rows = ((local >= 0) & (local < P_loc)).nonzero().squeeze(1)  # the one host sync
-    page, slot_r = local[rows], slot[rows]
+    keep = (local >= 0) & (local < P_loc)
+    # the first kept row (0 when there is none), as a 1-element index: a 0-dim index syncs
+    first = keep.int().argmax().reshape(1)
+    any_kept = keep.any()
+    page = torch.where(keep, local, torch.where(any_kept, local[first], 0))
+    slot_w = torch.where(keep, slot, torch.where(any_kept, slot[first], 0))
+
+    def write(pool: torch.Tensor, rows: torch.Tensor) -> None:
+        src = torch.where(any_kept, rows[first], pool[0, 0])
+        mask = keep.reshape(B, *([1] * (rows.dim() - 1)))
+        pool[page, slot_w] = torch.where(mask, rows, src)
+
     if quant:
-        qk, sk = quantize_token(new_k[rows])
-        qv, sv = quantize_token(new_v[rows])
-        pool_k[page, slot_r] = qk
-        pool_v[page, slot_r] = qv
-        scale_k[page, slot_r] = sk
-        scale_v[page, slot_r] = sv
+        qk, sk = quantize_token(new_k)
+        qv, sv = quantize_token(new_v)
+        for pool, rows in ((pool_k, qk), (pool_v, qv), (scale_k, sk), (scale_v, sv)):
+            write(pool, rows)
     else:
-        pool_k[page, slot_r] = new_k[rows].to(pool_k.dtype)
-        pool_v[page, slot_r] = new_v[rows].to(pool_v.dtype)
+        write(pool_k, new_k.to(pool_k.dtype))
+        write(pool_v, new_v.to(pool_v.dtype))
     # recycling a ring page: its slot-0 absolute position becomes pos
     new_base = torch.where(slot == 0, pos.to(page_pos.dtype), page_pos[b_idx, r])
     page_pos = page_pos.clone()

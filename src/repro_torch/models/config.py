@@ -1,13 +1,14 @@
 """Model configuration: a jax-free copy of :class:`repro.models.config.ModelConfig`.
 
 Same fields, derived properties and :meth:`ModelConfig.smoke`; the dtype
-accessors return ``torch`` dtypes.
+accessors return ``torch`` dtypes. Also the input-shape cells of the dry
+run (:data:`SHAPES`), as in the JAX module.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -184,3 +185,28 @@ class ModelConfig:
             compute_dtype="float32",
             remat="none",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str  # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+
+def get_shape(name: str) -> ShapeConfig:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)

@@ -26,9 +26,10 @@ import repro.core as jcore  # noqa: E402
 import repro.serving.blob_kv as jblob  # noqa: E402
 import repro_torch.core as tcore  # noqa: E402
 import repro_torch.serving.blob_kv as tblob  # noqa: E402
-from repro.analysis.lint import lint_paths  # noqa: E402
+from repro.analysis.lint import lint_paths as jax_lint_paths  # noqa: E402
 from repro.serving.engine import Request as JRequest  # noqa: E402
 from repro.serving.engine import ServingEngine as JEngine  # noqa: E402
+from repro_torch.analysis.lint import lint_paths  # noqa: E402
 from repro_torch.launch.profile_serve import cell_requests  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine, load_page, pack_page  # noqa: E402
 from test_torch_serving import pallas_interpret, setup  # noqa: E402,F401 - fixtures
@@ -273,7 +274,7 @@ COPIED = ["analysis/lock_order.py", "analysis/lockwatch.py", "core/segment_tree.
           "core/page_directory.py", "core/prefetch.py", "core/repair.py",
           "core/replica_balancer.py", "core/cluster.py", "serving/blob_kv.py", "data/pipeline.py",
           "core/flat_view.py", "core/blob.py", "data/sky.py", "configs/paper_sky.py", "core/faults.py",
-          "core/federation.py", "analysis/schedules.py"]
+          "core/federation.py", "analysis/schedules.py", "analysis/lint.py"]
 #: the functions (``Class.method``) in which a copy differs from its source: repairs of the
 #: reference's faults (ROADMAP Queue 3)
 REPAIRED = {"core/cluster.py": ["Cluster._gc_locked"],
@@ -326,6 +327,14 @@ def test_repaired_functions_differ_from_the_jax_package(module):
 
 def test_port_passes_the_concurrency_lint():
     assert lint_paths([str(ROOT / "src" / "repro_torch")]) == []
+
+
+def test_port_lint_reports_the_jax_lint_findings():
+    """Over the seeded-violation fixtures both lints report the same
+    findings, messages included."""
+    fixtures = [str(ROOT / "tests" / "lint_fixtures")]
+    got = [dataclasses.astuple(v) for v in lint_paths(fixtures)]
+    assert got == [dataclasses.astuple(v) for v in jax_lint_paths(fixtures)] and len(got) >= 6
 
 
 # ------------------------------ chip_smoke.py's blob phase ------------------------------
