@@ -142,24 +142,33 @@ JAX package), and it:
     detectors' read MB/s, the GC pass's ms and stall, H2D ms a pair, the
     card's busy share (at most), peak memory and the host's resident
     memory;
-15. serves across ranks (``sharded_phase``): four spawned processes, a
-    ``(data 2, model 2)`` mesh, NCCL when the host has a card for each and
-    else gloo with all four on the one card (the kernels are built once,
-    in step 2; each rank and collective has a deadline). (a)
-    ``llama3_2-1b`` at full width and depth: 8 rows of 2048-token prompts,
-    one single-device prefill, its pools striped over the ranks, then 32
-    decode steps with ``axis_info`` fed the unsharded oracle's greedy
-    tokens (rank 0 decodes with the unsharded model first): logits
-    bit-equal across ranks and within ``SHARD_LOGITS_TOL`` of the oracle's,
-    greedy tokens the oracle's but at printed near-ties, each rank's paged
-    kernel on its stripe held to the plain version (rank 1's timed beside
-    its byte bound), 16 x 32 paged launches a rank; (b) ``mixtral-8x7b``
-    cut to 4 layers, experts over the model axis, 8 rows of 4160 tokens
-    prefilled with ``axis_info`` (tokens over the data axis), 32 decode
-    steps, held to the unsharded model where the router chose alike; (c)
-    ``mistral-large-123b`` cut to 2 layers with int8 pools and scales
-    striped, as (a). Prints each rank's median decode step, time and bytes
-    in the all-reduces a step, launches and peak memory;
+15. serves across ranks (``sharded_phase``), the weights in the serving
+    layout (every leaf its ``param_shardings`` block: heads, ffn, vocab
+    and experts over ``model``, ``embed`` over ``data``): the unsharded
+    oracles first, in this process, one cell at a time (prefill of 8 rows,
+    32 greedy decode steps, logits and tokens kept on the host, weights
+    freed); then four spawned ranks of a ``(data 2, model 2)`` mesh, NCCL
+    when the host has a card for each and else gloo with all four on the
+    one card (the kernels are built once, in step 2; each rank and
+    collective has a deadline). Each rank draws its blocks layer by layer
+    (``init(axis_info=)``, the ranks in turn), prefills its 4 of the 8 rows
+    (each layer's ``data`` blocks regathered, heads split over ``model``:
+    the flash kernel on its local heads, layer 0's call held to the plain
+    version), gets one headroom page a row (``add_headroom``), and takes
+    32 decode steps fed the oracle's tokens (the paged kernel on its
+    stripe, held to the plain version). (a) ``llama3_2-1b`` at full width
+    and depth, 2048-token prompts; (b) ``mixtral-8x7b`` cut to 4 layers,
+    4160-token prompts, held to the oracle where the router chose alike;
+    (c) ``mistral-large-123b`` cut to 16 layers (step 10's depth), int8
+    pools. Checks: each rank's weights are the layout's bytes; logits
+    bit-equal across the ranks that hold the same rows and within
+    ``SHARD_LOGITS_TOL`` of the oracle's; greedy tokens the oracle's but at
+    printed near-ties; one flash launch a layer in the prefill and one
+    paged launch a layer a step. Prints each rank's weight bytes, its
+    prefill arguments beside the dry run's count, prefill ms, median
+    decode step, time and bytes in the all-reduces, launches, peak memory
+    and the card's free memory after the prefill (``mem_get_info``), and
+    rank 1's flash kernel, plain version and SDPA on its local heads;
 16. trains across ranks (``train_sharded_phase``): the oracles first, in
     this process, then four spawned ranks of a ``(data 2, model 2)`` mesh
     (gloo on the one card). (a) ``llama3_2-1b`` at full width cut to 2
@@ -969,8 +978,9 @@ def record_routes() -> dict:
 
     def run(x, router, w1, wg, w2, cfg, **kw):
         out = inner(x, router, w1, wg, w2, cfg, **kw)
-        if state["on"]:
-            top = torch.topk(x.float() @ router.float(), cfg.top_k, dim=-1).indices
+        if state["on"]:  # the gates a sharded decode sums over its router's blocks, else x's own
+            gates = kw.get("gates")
+            top = torch.topk(x.float() @ router.float() if gates is None else gates, cfg.top_k, dim=-1).indices
             state["calls"].append(top.sort(dim=-1).values)
             if state["first"] is None:
                 state["first"] = (x, router, w1, wg, w2, out[0])
@@ -2441,44 +2451,34 @@ def federated_sky_phase(dev, card, kernels, dep) -> dict:
 
 # ------------------------------ step 15: serving across ranks ------------------------------
 RANKS, RANKS_MODEL = 4, 2  # a (data 2, model 2) mesh: the JAX package's (4, 2) test mesh, halved
-SHARD_DEADLINE_S = 480.0  # every rank and every collective of step 15 ends by this deadline
-SHARD_MIXTRAL_LAYERS = 4  # of 32: four ranks' shards and the unsharded oracle share the card's 80 GB
-SHARD_MISTRAL_LAYERS = 2  # of 88: the same
+SHARD_DEADLINE_S = 600.0  # every rank and every collective of step 15 ends by this deadline
+SHARD_MIXTRAL_LAYERS = 4  # of 32: the unsharded oracle runs first, alone on the card
+SHARD_MISTRAL_LAYERS = MISTRAL_LAYERS  # of 88: step 10's depth; the oracle's 42.0 GB run alone and are freed
 # every capacity is the layer's whole token count, as in the smoke configs: the sharded
 # MoE counts capacity over each data shard's tokens (the JAX package's rule), so with
 # drops the two runs would drop different assignments and compute different functions
 SHARD_MOE_CAPACITY = 4.0
-# sharded against unsharded logits, max |d| over max |oracle|: the ranks' partial
-# (o, l) are f32 sums merged in another order than the kernel's own splits, which
-# moves a bf16-rounded attention output by at most one bf16 step (2^-8 of it) where
-# it sits on a rounding boundary (and the EP MoE rounds each rank's partial output to
-# bf16 before the sum); through the bf16 layers such steps grow as in step 7's
-# kernel-vs-oracle comparison, by the same mechanism, so its bound LOGITS_TOL holds
+# sharded against unsharded logits, max |d| over max |oracle|: each rank's products
+# with its weight blocks are partial sums, rounded to bf16 before they are summed over
+# the ranks (the MLP's and the attention's outputs over the model axis; in decode also
+# q, k, v and the MLP's hidden over the data axis), and the ranks' partial (o, l) are f32
+# sums merged in another order than the kernel's own splits: each moves a bf16 value by
+# at most one bf16 step where it sits on a rounding boundary. Through the bf16 layers
+# such steps grow as in step 7's kernel-vs-oracle comparison, by the same mechanism, so
+# its bound LOGITS_TOL holds
 SHARD_LOGITS_TOL = LOGITS_TOL
+SHARD_DEVICE = "cuda"  # "cpu" rehearses step 15 without a card
 
 
-def scatter_pages(cache, multiple: int, seed: int = 0) -> dict:
-    """The same cache with its pages moved to a seeded permutation of the
-    pool (padded to ``multiple`` first) and the tables renumbered: the
-    function is unchanged, but a row's pages now lie on several ranks, as an
-    engine's allocator hands pages out of a free list. A single-device
-    prefill places each row's pages together, so in a stripe of whole rows
-    the split-K combine would only ever add exact zeros."""
-    from repro_torch.parallel import sharding as shd
+def shard_cells() -> tuple:
+    """Step 15's cells: (name, config, prompt tokens a row)."""
+    from repro_torch.configs import get_config
 
-    kv = shd.pad_pages(cache, multiple)["kv"]
-    gen = torch.Generator().manual_seed(seed)
-    perm = torch.randperm(kv["pool_k"].shape[1], generator=gen).to(kv["pool_k"].device)  # page p moves to perm[p]
-    out = dict(kv, tables=perm[kv["tables"].long()].to(kv["tables"].dtype))
-    for name in shd.POOL_LEAVES:
-        if name in kv:
-            out[name] = torch.empty_like(kv[name])
-            out[name][:, perm] = kv[name]
-    return dict(cache, kv=out)
-
-
-def _digest(t: torch.Tensor) -> str:
-    return hashlib.sha256(t.detach().float().cpu().numpy().tobytes()).hexdigest()
+    mixtral = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=SHARD_MIXTRAL_LAYERS,
+                                  capacity_factor=SHARD_MOE_CAPACITY)
+    mistral = dataclasses.replace(get_config("mistral-large-123b"), n_layers=SHARD_MISTRAL_LAYERS)
+    return (("llama", get_config("llama3_2-1b"), PROMPT), ("mixtral", mixtral, MIXTRAL_PROMPT),
+            ("mistral", mistral, PROMPT))
 
 
 def _oracle_decode(model, params, cache, logits, cfg) -> tuple:
@@ -2493,13 +2493,91 @@ def _oracle_decode(model, params, cache, logits, cfg) -> tuple:
     return torch.stack(fed), torch.stack(out)
 
 
-def _teacher_tokens(tokens, shape, dev):
-    """Rank 0's oracle tokens on every rank (one broadcast)."""
-    import torch.distributed as dist
+def _recorded_routes(state):
+    """The recorded calls' router choices on the CPU; recording off, and the
+    first call's tensors let go (they are views of the expert weights)."""
+    state["on"], state["first"] = False, None
+    return [c.cpu() for c in state["calls"]]
 
-    t = tokens if tokens is not None else torch.zeros(shape, dtype=torch.long, device=dev)
-    dist.broadcast(t, src=0)
-    return t
+
+def _rows_prefill(model, params, prompt, cfg) -> tuple:
+    """The unsharded prefill one row at a time (a MoE's dispatch buffers
+    scale with the tokens of a call), its caches laid out as one batched
+    prefill lays them: row b's pages at b * R + p."""
+    outs = [model.prefill(params, prompt[b:b + 1]) for b in range(prompt.shape[0])]
+    logits = torch.cat([o[0] for o in outs])
+    kv = {n: torch.cat([o[1]["kv"][n] for o in outs], dim=1) for n in ("pool_k", "pool_v")}
+    R = outs[0][1]["kv"]["tables"].shape[-1]
+    kv["tables"] = torch.cat([o[1]["kv"]["tables"] + b * R for b, o in enumerate(outs)], dim=1)
+    kv["page_pos"] = torch.cat([o[1]["kv"]["page_pos"] for o in outs], dim=1)
+    lengths = torch.cat([o[1]["lengths"] for o in outs])
+    return logits, {"kv": kv, "lengths": lengths}
+
+
+def shard_oracle(cfg, name, prompt_len, dev) -> dict:
+    """The unsharded model on this process's card, before the ranks start:
+    one prefill of 8 rows of ``prompt_len`` tokens (a MoE's one row at a
+    time, its router choices recorded), then N_DECODE greedy decode steps.
+    Its logits and tokens come back on the host; its weights are freed."""
+    from repro_torch.models.lm import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev, dtype=cfg.cdtype())
+    out = {"weight_bytes": sum(t.numel() * t.element_size() for t in _leaves(params))}
+    prompt = prompt_tokens(cfg, 8, prompt_len, dev)
+    if cfg.is_moe:
+        routes = record_routes()
+        routes["on"], routes["calls"] = True, []
+        logits, cache = _rows_prefill(model, params, prompt, cfg)
+        out["prefill_routes"] = _recorded_routes(routes)
+        routes["on"], routes["calls"] = True, []
+        tokens, decoded = _oracle_decode(model, params, cache, logits, cfg)
+        out["decode_routes"] = _recorded_routes(routes)
+        routes["restore"]()
+    else:
+        logits, cache = model.prefill(params, prompt)
+        tokens, decoded = _oracle_decode(model, params, cache, logits, cfg)
+    out.update(prefill=logits.cpu(), tokens=tokens.cpu(), decode=decoded.cpu(),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    del model, params, cache, logits, decoded, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  oracle {name}: {cfg.n_layers} layers unsharded, {out['weight_bytes'] / 2**30:.2f} GiB of weights, "
+          f"prefill of 8 x {prompt_len} and {N_DECODE} greedy steps in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def add_headroom(cache, ai) -> dict:
+    """The striped cache a sharded prefill returns, with one decode-headroom
+    page a row, as an engine's page allocator hands pages out (a sharded
+    prefill keeps none: the JAX package's rule): every stripe grows by
+    ceil(B / n) zero pages at its end, row b's new page is the (b // n)-th
+    of stripe b % n, and the tables are renumbered to the grown stripes."""
+    from repro_torch.parallel import sharding as shd
+
+    kv = cache["kv"]
+    L, P_loc, T = kv["pool_k"].shape[:3]
+    B, R = kv["tables"].shape[1:]
+    n = ai.n_page_shards
+    extra = -(-B // n)
+    grown = P_loc + extra
+    dev = kv["tables"].device
+    t = kv["tables"].long()
+    b = torch.arange(B, device=dev)
+    new = ((b % n) * grown + P_loc + b // n)[None, :, None].expand(L, B, 1)
+    out = dict(kv, tables=torch.cat([t // P_loc * grown + t % P_loc, new], dim=-1).to(kv["tables"].dtype),
+               page_pos=torch.cat([kv["page_pos"], torch.full((L, B, 1), R * T, dtype=kv["page_pos"].dtype,
+                                                               device=dev)], dim=-1))
+    for name in shd.POOL_LEAVES:
+        if name in kv:
+            x = kv[name]
+            out[name] = torch.cat([x, torch.zeros((L, extra, *x.shape[2:]), dtype=x.dtype, device=dev)], dim=1)
+    return dict(cache, kv=out)
+
+
+def _digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.detach().float().cpu().numpy().tobytes()).hexdigest()
 
 
 def _sharded_decode(model, params, cache, tokens, ai, dev, kernels) -> tuple:
@@ -2602,7 +2680,7 @@ def _shard_kernel_check(model, params, cache, token, ai, dev, flush) -> dict:
           f"{scaled:.3e}, {stat_err:.3e}, empty rows ok {dead_ok}")
     res = {"page_offset": off, "pages_local": args[1].shape[0], "live_rows": int(live.sum()),
            "max_abs_err": err, "scaled_err": scaled, "stat_err": stat_err}
-    if flush is not None:  # rank 1, in (a)
+    if flush is not None:  # rank 1
         nbytes, flops = paged_work(args, window, off)
         b_ms, b_by = bound_ms(nbytes, flops)
         res.update(ms=time_ms(lambda: inner(*args, window=window, page_offset=off), flush=flush),
@@ -2613,156 +2691,180 @@ def _shard_kernel_check(model, params, cache, token, ai, dev, flush) -> dict:
     return res
 
 
-def _serve_sharded(cfg, name, ai, dev, kernels, flush) -> dict:
-    """(a) and (c): the replicated model on every rank, one single-device
-    prefill of 8 rows of PROMPT tokens, its pages scattered over the pool
-    (:func:`scatter_pages`) and the pools striped over the four ranks; rank
-    0 first decodes greedily with the unsharded model on the prefill's own
-    cache (the oracle), then every rank takes N_DECODE decode steps with
-    ``axis_info`` fed the oracle's tokens. Rank 0 holds the logits to the
-    oracle's."""
-    from repro_torch.models.lm import build_model
-    from repro_torch.parallel import sharding as shd
+def capture_flash() -> dict:
+    """Wrap the flash kernel's wrapper so that the first call's inputs,
+    options and output are kept in ``state["first"]`` (layer 0 of a
+    prefill); ``state["restore"]()`` puts it back. The launch is the
+    wrapper's own, counted once."""
+    from repro_torch.kernels import ops
 
-    rank = ai.mesh.rank
-    torch.cuda.reset_peak_memory_stats(dev)
-    model = build_model(cfg)
-    params = model.init(seed=0, device=dev, dtype=cfg.cdtype())
-    checksum = sum(float(t.double().sum()) for t in _leaves(params))
-    prompt = prompt_tokens(cfg, 8, PROMPT, dev)
-    for k in kernels:
-        k.launches = 0
-    logits, cache = model.prefill(params, prompt)
-    prefill_launches = {k.__name__.removesuffix("_cuda"): k.launches for k in kernels}
-    sharded = shd.shard_cache(scatter_pages(cache, ai.n_page_shards), cfg, ai)
-    oracle_tokens = oracle = None
-    if rank == 0:
-        oracle_tokens, oracle = _oracle_decode(model, params, cache, logits, cfg)
-    del cache
-    tokens = _teacher_tokens(oracle_tokens, (N_DECODE, 8), dev)
-    got, steps, launches, calls, nbytes, sharded = _sharded_decode(model, params, sharded, tokens, ai, dev, kernels)
-    check(bool(torch.isfinite(got).all()), f"{name}: non-finite sharded logits on rank {rank}")
-    n_attn = cfg.n_layers
-    check(launches["paged_attention"] == n_attn * N_DECODE and launches["flash_attention"] == 0,
-          f"{name}: rank {rank} launched {launches} in {N_DECODE} sharded decode steps")
-    res = {"checksum": checksum, "digests": [_digest(g) for g in got], "steps_ms": [s * 1e3 for s in steps],
-           "launches": launches, "prefill_launches": prefill_launches, "allreduces_per_step": calls / N_DECODE,
-           "allreduce_bytes_per_step": nbytes / N_DECODE,
-           "collective_ms_per_step": _collective_ms(model, params, sharded, tokens, ai, dev),
-           "pool_pages_local": sharded["kv"]["pool_k"].shape[1]}
-    res["kernel_check"] = _shard_kernel_check(model, params, sharded, tokens[0], ai, dev, flush)
-    if rank == 0:
-        errs = _logit_errs(got, oracle)
-        res.update(max_err=float(errs.max()), step_errs=errs.amax(-1).tolist(),
-                   misses=_near_tie_misses(got, oracle))
-    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
-    return res
+    inner = ops.flash_attention_cuda
+    state = {"first": None, "restore": lambda: setattr(ops, "flash_attention_cuda", inner)}
+
+    def run(q, k, v, **kw):
+        out = inner(q, k, v, **kw)
+        if state["first"] is None:
+            state["first"] = ((q, k, v), dict(kw), out)
+        return out
+
+    ops.flash_attention_cuda = run
+    return state
 
 
-def _recorded_routes(state):
-    """The recorded calls' router choices on the CPU; recording off, and the
-    first call's tensors let go (they are views of the expert weights)."""
-    state["on"], state["first"] = False, None
-    return [c.cpu() for c in state["calls"]]
-
-
-def _rows_prefill(model, params, prompt, cfg) -> tuple:
-    """The unsharded prefill one row at a time (a MoE's dispatch buffers
-    scale with the tokens of a call), its caches laid out as one batched
-    prefill lays them: row b's pages at b * R + p."""
-    outs = [model.prefill(params, prompt[b:b + 1]) for b in range(prompt.shape[0])]
-    logits = torch.cat([o[0] for o in outs])
-    kv = {n: torch.cat([o[1]["kv"][n] for o in outs], dim=1) for n in ("pool_k", "pool_v")}
-    R = outs[0][1]["kv"]["tables"].shape[-1]
-    kv["tables"] = torch.cat([o[1]["kv"]["tables"] + b * R for b, o in enumerate(outs)], dim=1)
-    kv["page_pos"] = torch.cat([o[1]["kv"]["page_pos"] for o in outs], dim=1)
-    lengths = torch.cat([o[1]["lengths"] for o in outs])
-    return logits, {"kv": kv, "lengths": lengths}
-
-
-def _moe_sharded(cfg, ai, dev, kernels) -> dict:
-    """(b): mixtral's experts over the model axis (each rank 4 of 8), tokens
-    over the data axis. The ranks draw the full weights one after another
-    (four at once would not fit), keep their experts and drop the rest;
-    rank 0 keeps the full weights for the oracle (the unsharded model: a
-    prefill of each row, then greedy decode), records its router choices,
-    and drops them before every rank prefills with ``axis_info`` (the
-    cache's pages scattered and striped) and decodes fed the oracle's
-    tokens."""
+def _shard_flash_check(first, ai, dev, flush, name) -> dict:
+    """Layer 0's flash call of a rank's prefill (its rows, its local heads)
+    held to the plain version on its first row and first kv head's group
+    of q heads (step 3's tolerances; the plain version materialises the
+    scores, and four ranks share the card); rank 1 then times the kernel on
+    the whole call's inputs, and the plain version row by row, and SDPA
+    (row by row where the window needs a boolean mask, which SDPA
+    materialises), the other ranks waiting, against the bound."""
     import torch.distributed as dist
 
-    from repro_torch.models.lm import build_model
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    (q, k, v), kw, got = first
+    B, Sq, H, D = q.shape
+    K = k.shape[2]
+    want = flash_attention_plain(q[:1, :, :H // K], k[:1, :, :1], v[:1, :, :1], **kw)
+    err, rel, ok = flash_ok(got[:1, :, :H // K], want)
+    check(ok and bool(torch.isfinite(got).all()),
+          f"{name}: rank {ai.mesh.rank}'s flash call on its local heads disagrees with plain: {err:.3e}, {rel}")
+    res = {"shape": {"B": B, "Sq": Sq, "Sk": k.shape[1], "H": H, "K": K, "D": D, "window": kw.get("window")},
+           "max_abs_err": err, "row_err": rel}
+    del want
+    if flush is not None:
+        torch.cuda.empty_cache()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if kw.get("window"):
+            mask = flash_mask(Sq, k.shape[1], causal=True, window=kw["window"], q_start=0, device=dev)
+            library = lambda: [sdpa(qt[b:b + 1], kt[b:b + 1], vt[b:b + 1], attn_mask=mask,  # noqa: E731
+                                    enable_gqa=H != K) for b in range(B)]
+        else:
+            library = lambda: sdpa(qt, kt, vt, is_causal=kw.get("causal", True), enable_gqa=H != K)  # noqa: E731
+        plain = lambda: [flash_attention_plain(q[b:b + 1], k[b:b + 1], v[b:b + 1], **kw) for b in range(B)]  # noqa: E731
+        res.update(ms=time_ms(lambda: flash_attention_cuda(q, k, v, **kw), 10, flush=flush),
+                   plain_ms=time_ms(plain, 3, flush=flush), library_ms=time_ms(library, 10, flush=flush))
+        res.update(zip(("bound_ms", "bound_by"), bound_ms(*flash_work((q, k, v), kw))))
+        del qt, kt, vt, library
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def _held_weights(cfg, ai) -> tuple:
+    """(the bytes of a rank's weights in the serving layout as an init with
+    ``dtype=cfg.cdtype()`` stores them: the leaves used in f32 in f32, the
+    embedding table in ``param_dtype``, the rest in the compute dtype; the
+    dry run's argument bytes for a prefill of this rank's rows with every
+    leaf in the compute dtype), both from the specs alone."""
+    from repro_torch.convert import param_shapes
+    from repro_torch.launch import dryrun
+    from repro_torch.models.lm import _F32_LEAVES
     from repro_torch.parallel import sharding as shd
+
+    def size(path, shape, spec) -> int:
+        n = int(np.prod(shape)) // ai.mesh.axes_size([e for e in spec if e is not None])
+        item = 4 if path[-1] in _F32_LEAVES else (cfg.pdtype() if path[-1] == "table" else cfg.cdtype()).itemsize
+        return n * item
+
+    sizes = []
+    shd._map(lambda *a: sizes.append(size(*a)), param_shapes(cfg), shd.serving_specs(cfg, ai))
+    rows = MIXTRAL_PROMPT if cfg.is_moe else PROMPT
+    return sum(sizes), dryrun.arguments(dataclasses.replace(cfg, param_dtype=cfg.compute_dtype), "prefill", 8, rows, ai)
+
+
+def _serve_sharded(name, cfg, prompt_len, ai, dev, kernels, flush, tokens) -> dict:
+    """One cell on this rank: its blocks of the weights in the serving
+    layout (drawn layer by layer, the ranks one after another, each holding
+    one whole layer as drawn); a prefill of this rank's 4 of the 8 rows with
+    ``axis_info`` (layer 0's flash call held to the plain version), one
+    headroom page a row (:func:`add_headroom`), then N_DECODE decode steps
+    fed the oracle's ``tokens``. Returns the measures, the logits' digests,
+    and the logits the parent holds to the oracle's (rank 0's decode, the
+    prefill rows of each data shard's model rank 0)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import cost
+    from repro_torch.models.lm import build_model
+    from repro_torch.parallel import collectives
 
     rank = ai.mesh.rank
     torch.cuda.reset_peak_memory_stats(dev)
     model = build_model(cfg)
-    full = local = None
+    params = None
+    t0 = time.perf_counter()
     for r in range(ai.mesh.size):
         if r == rank:
-            full = model.init(seed=0, device=dev, dtype=cfg.cdtype())
-            local = shd.shard_params(full, cfg, ai)
-            if rank != 0:
-                local = clone_cache(local)
-                full = None
-                torch.cuda.empty_cache()
+            params = model.init(seed=0, device=dev, dtype=cfg.cdtype(), axis_info=ai)
+            torch.cuda.synchronize(dev)
         dist.barrier()
-    ffn = local["blocks"]["ffn"]
-    expert_bytes = sum(ffn[n].numel() * ffn[n].element_size() for n in ("w1", "wg", "w2"))
-    checksum = sum(float(t.double().sum()) for t in _leaves(local))
-    prompt = prompt_tokens(cfg, 8, MIXTRAL_PROMPT, dev)
-    routes = record_routes()
-    oracle_tokens = oracle = None
-    res = {}
-    if rank == 0:
+    build_s = time.perf_counter() - t0
+    weight_bytes = cost.storage_bytes(params)
+    reckoned, dry_args = _held_weights(cfg, ai)
+    check(weight_bytes == reckoned, f"{name}: rank {rank} holds {weight_bytes} bytes of weights, "
+                                    f"the serving layout {reckoned}")
+    prompt = prompt_tokens(cfg, 8, prompt_len, dev).to(torch.int32)
+    held_args = weight_bytes + prompt.numel() * prompt.element_size() // ai.n_batch_shards
+    routes = record_routes() if cfg.is_moe else None
+    if routes is not None:
         routes["on"], routes["calls"] = True, []
-        o_logits, cache = _rows_prefill(model, full, prompt, cfg)
-        res["oracle_prefill_routes"] = _recorded_routes(routes)
-        routes["on"], routes["calls"] = True, []
-        oracle_tokens, oracle = _oracle_decode(model, full, cache, o_logits, cfg)
-        res["oracle_decode_routes"] = _recorded_routes(routes)
-        local = clone_cache(local)
-        del full, cache
-        torch.cuda.empty_cache()
-    tokens = _teacher_tokens(oracle_tokens, (N_DECODE, 8), dev)
+    flash = capture_flash()
     for k in kernels:
         k.launches = 0
-    routes["on"], routes["calls"] = True, []
+    collectives.stats.update(calls=0, bytes=0)
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    p_logits, pcache = model.prefill(local, prompt, axis_info=ai)
-    torch.cuda.synchronize(dev)
+    try:
+        p_logits, cache = model.prefill(params, prompt, axis_info=ai)
+        torch.cuda.synchronize(dev)
+    finally:
+        flash["restore"]()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    res["prefill_routes"] = _recorded_routes(routes)
     prefill_launches = {k.__name__.removesuffix("_cuda"): k.launches for k in kernels}
-    sharded = shd.shard_cache(scatter_pages(pcache, ai.n_page_shards), cfg, ai)
-    del pcache
-    routes["on"], routes["calls"] = True, []
-    got, steps, launches, calls, nbytes, sharded = _sharded_decode(model, local, sharded, tokens, ai, dev, kernels)
-    res["decode_routes"] = _recorded_routes(routes)
-    routes["restore"]()
+    prefill_calls, prefill_bytes = collectives.stats["calls"], collectives.stats["bytes"]
+    free, total = torch.cuda.mem_get_info(dev)
+    prefill_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    res = {"prefill_routes": _recorded_routes(routes)} if routes is not None else {}
+    check(prefill_launches["flash_attention"] == cfg.n_layers and prefill_launches["paged_attention"] == 0,
+          f"{name}: rank {rank} launched {prefill_launches} in the sharded prefill")
+    res["flash_check"] = _shard_flash_check(flash["first"], ai, dev, flush, name)
+    flash["first"] = None
+    cache = add_headroom(cache, ai)
+    tokens = tokens.to(dev)
+    if routes is not None:
+        routes["on"], routes["calls"] = True, []
+    got, steps, launches, calls, nbytes, cache = _sharded_decode(model, params, cache, tokens, ai, dev, kernels)
+    if routes is not None:
+        res["decode_routes"] = _recorded_routes(routes)
+        routes["restore"]()
     check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(p_logits).all()),
-          f"mixtral: non-finite sharded logits on rank {rank}")
-    check(launches["paged_attention"] == cfg.n_layers * N_DECODE and prefill_launches["flash_attention"] == cfg.n_layers,
-          f"mixtral: rank {rank} launched {prefill_launches} in the prefill, {launches} in decode")
-    res.update(checksum=checksum, expert_bytes=expert_bytes, digests=[_digest(g) for g in got],
-               prefill_digest=_digest(p_logits), steps_ms=[s * 1e3 for s in steps], prefill_ms=prefill_ms,
-               launches=launches, prefill_launches=prefill_launches, allreduces_per_step=calls / N_DECODE,
-               allreduce_bytes_per_step=nbytes / N_DECODE,
-               collective_ms_per_step=_collective_ms(model, local, sharded, tokens, ai, dev),
-               pool_pages_local=sharded["kv"]["pool_k"].shape[1])
+          f"{name}: non-finite sharded logits on rank {rank}")
+    check(launches["paged_attention"] == cfg.n_layers * N_DECODE and launches["flash_attention"] == 0,
+          f"{name}: rank {rank} launched {launches} in {N_DECODE} sharded decode steps")
+    res.update(digests=[_digest(g) for g in got], prefill_digest=_digest(p_logits), steps_ms=[s * 1e3 for s in steps],
+               prefill_ms=prefill_ms, build_s=build_s, launches=launches, prefill_launches=prefill_launches,
+               prefill_allreduces=prefill_calls, prefill_allreduce_bytes=prefill_bytes,
+               allreduces_per_step=calls / N_DECODE, allreduce_bytes_per_step=nbytes / N_DECODE,
+               collective_ms_per_step=_collective_ms(model, params, cache, tokens, ai, dev),
+               pool_pages_local=cache["kv"]["pool_k"].shape[1], weight_bytes=weight_bytes,
+               reckoned_weight_bytes=reckoned, prefill_args=held_args, dryrun_prefill_args=dry_args,
+               prefill_peak_gib=prefill_peak, free_after_prefill_gib=free / 2**30, card_gib=total / 2**30)
+    res["kernel_check"] = _shard_kernel_check(model, params, cache, tokens[0], ai, dev, flush)
     if rank == 0:
-        res["prefill_row_errs"] = _logit_errs(p_logits[None], o_logits[None])[0].tolist()
-        res["decode_row_errs"] = _logit_errs(got, oracle).tolist()
-        res["misses"] = _near_tie_misses(got, oracle)
+        res["decode"] = got.cpu()
+    if ai.mesh.coords()[ai.model_axis] == 0:
+        res["prefill"] = p_logits.cpu()
     res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    res["free_at_end_gib"] = torch.cuda.mem_get_info(dev)[0] / 2**30
+    del params, cache, got
     return res
 
 
-def sharded_rank(ai, chosen, card):
+def sharded_rank(ai, chosen, card, oracle_tokens):
     """Step 15 on one rank: (a), (b), (c) in turn; every rank returns its
-    measures, rank 0 also its comparisons with the unsharded oracle."""
-    from repro_torch.configs import get_config
+    measures (see :func:`_serve_sharded`)."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.paged_attention import paged_attention_cuda
 
@@ -2770,133 +2872,153 @@ def sharded_rank(ai, chosen, card):
     torch.backends.cudnn.allow_tf32 = False
     dev = chosen.device
     kernels = (flash_attention_cuda, paged_attention_cuda)
-    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev) if ai.mesh.rank == 1 else None
     rank = ai.mesh.rank
     if rank == 0:
         print(f"  {chosen.describe()}; mesh {ai.mesh.shape}, pages over {ai.page_axes}", flush=True)
-    mixtral = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=SHARD_MIXTRAL_LAYERS,
-                                  capacity_factor=SHARD_MOE_CAPACITY)
-    mistral = dataclasses.replace(get_config("mistral-large-123b"), n_layers=SHARD_MISTRAL_LAYERS)
-    cells = (("llama", lambda: _serve_sharded(get_config("llama3_2-1b"), "llama3_2-1b", ai, dev, kernels, flush)),
-             ("mixtral", lambda: _moe_sharded(mixtral, ai, dev, kernels)),
-             ("mistral", lambda: _serve_sharded(mistral, "mistral-large-123b", ai, dev, kernels, None)))
     out = {"backend": chosen.backend, "device": str(dev)}
-    for name, run in cells:
+    for name, cfg, prompt_len in shard_cells():
+        flush = torch.empty(64 << 20, dtype=torch.int32, device=dev) if rank == 1 else None
         t0 = time.perf_counter()
-        out[name] = run()
-        flush = None
+        out[name] = _serve_sharded(name, cfg, prompt_len, ai, dev, kernels, flush, oracle_tokens[name])
+        del flush
         gc.collect()
         torch.cuda.empty_cache()
         r = out[name]
-        print(f"  [rank {rank}] {name} in {time.perf_counter() - t0:.1f} s: median decode step "
-              f"{statistics.median(r['steps_ms']):.2f} ms, peak {r['peak_gib']:.2f} GiB"
-              + (f", max err vs unsharded {r['max_err']:.3e}" if "max_err" in r else ""), flush=True)
+        print(f"  [rank {rank}] {name} in {time.perf_counter() - t0:.1f} s: weights {r['weight_bytes'] / 2**30:.3f} "
+              f"GiB (the layout's {r['reckoned_weight_bytes'] / 2**30:.3f}); prefill arguments {r['prefill_args']} "
+              f"bytes, the dry run's at the compute dtype {r['dryrun_prefill_args']}; prefill {r['prefill_ms']:.1f} ms, peak "
+              f"{r['prefill_peak_gib']:.2f} GiB, card free after it {r['free_after_prefill_gib']:.2f} of "
+              f"{r['card_gib']:.2f} GiB (mem_get_info); median decode step {statistics.median(r['steps_ms']):.2f} "
+              f"ms; peak {r['peak_gib']:.2f} GiB", flush=True)
     return out
 
 
-def _route_flips(res) -> tuple:
+def _route_flips(oracle, res) -> tuple:
     """Rows whose token's router choice differs between the sharded run and
     the oracle in some layer: (prefill rows (8,), decode (N_DECODE, 8))
-    flags. The sharded routes of data block d come from rank (d, model 0);
-    the oracle's prefill ran one row at a time."""
+    flags. The sharded prefill routes of data block d come from rank
+    (d, model 0), each decode step's from rank 0 (every rank routes every
+    row); the oracle's prefill ran one row at a time."""
     L, S = SHARD_MIXTRAL_LAYERS, MIXTRAL_PROMPT
-    oracle_p, oracle_d = res[0]["mixtral"]["oracle_prefill_routes"], res[0]["mixtral"]["oracle_decode_routes"]
     blocks = [res[d * RANKS_MODEL]["mixtral"] for d in range(RANKS // RANKS_MODEL)]
     rows = 8 // len(blocks)
     prefill = torch.zeros(8, dtype=torch.bool)
     decode = torch.zeros((N_DECODE, 8), dtype=torch.bool)
+    mine_d = res[0]["mixtral"]["decode_routes"]
     for b in range(8):
         mine = blocks[b // rows]
         for layer in range(L):
             last = (b % rows) * S + S - 1
-            prefill[b] |= bool((oracle_p[b * L + layer][-1] != mine["prefill_routes"][layer][last]).any())
+            prefill[b] |= bool((oracle["prefill_routes"][b * L + layer][-1] != mine["prefill_routes"][layer][last]).any())
             for s in range(N_DECODE):
-                decode[s, b] |= bool((oracle_d[s * L + layer][b] != mine["decode_routes"][s * L + layer][b % rows]).any())
+                decode[s, b] |= bool((oracle["decode_routes"][s * L + layer][b] != mine_d[s * L + layer][b]).any())
     return prefill, decode
 
 
 def sharded_phase(card) -> dict:
-    """Step 15: serving across ranks. Four ranks of a (data 2, model 2)
-    mesh, spawned, each with its own deadline; NCCL when the host has a card
-    for every rank, else gloo with every rank on the one card."""
+    """Step 15: serving across ranks, the weights in the serving layout.
+    The unsharded oracles first, in this process, one cell at a time, each
+    freed; then four ranks of a (data 2, model 2) mesh, spawned, each with
+    its own deadline; NCCL when the host has a card for every rank, else
+    gloo with every rank on the one card. The parent holds the ranks'
+    logits to the oracles'."""
     from repro_torch.launch import mesh as launch_mesh
 
-    plan = launch_mesh.choose_backend(RANKS, 0)
+    dev = torch.device(SHARD_DEVICE)
+    t0 = time.perf_counter()
+    oracles = {name: shard_oracle(cfg, name, prompt_len, dev) for name, cfg, prompt_len in shard_cells()}
+    oracle_s = time.perf_counter() - t0
+    plan = launch_mesh.choose_backend(RANKS, 0, SHARD_DEVICE)
     # four processes' caching allocators on one card: segments that grow
     # in place leave less of it stranded between them
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     print(f"  backend {plan.backend}, world size {RANKS} ({RANKS // RANKS_MODEL} data x {RANKS_MODEL} model), "
           f"{torch.cuda.device_count()} card(s); {card}", flush=True)
-    t0 = time.perf_counter()
-    res = launch_mesh.spawn(sharded_rank, RANKS, (card,), model_parallel=RANKS_MODEL, device="cuda",
-                            timeout_s=SHARD_DEADLINE_S)
+    t1 = time.perf_counter()
+    res = launch_mesh.spawn(sharded_rank, RANKS, (card, {n: o["tokens"] for n, o in oracles.items()}),
+                            model_parallel=RANKS_MODEL, device=SHARD_DEVICE, timeout_s=SHARD_DEADLINE_S)
+    ranks_s = time.perf_counter() - t1
     wall = time.perf_counter() - t0
     check(all(r["backend"] == plan.backend for r in res), f"ranks chose {[r['backend'] for r in res]}")
     out = {"backend": plan.backend, "ranks": RANKS, "cards": torch.cuda.device_count(), "wall_s": wall,
-           "card": card}
-    for name in ("llama", "mixtral", "mistral"):
+           "oracle_s": oracle_s, "ranks_s": ranks_s, "card": card}
+    n_data = RANKS // RANKS_MODEL
+    for (name, cfg, prompt_len), tag in zip(shard_cells(), "abc"):
         rs = [r[name] for r in res]
-        check(len({r["checksum"] for r in rs if name != "mixtral"}) <= 1,
-              f"{name}: the ranks drew different weights")
+        oracle = oracles[name]
         for r in rs[1:]:
-            check(r["digests"] == rs[0]["digests"], f"{name}: the ranks' logits are not bit-equal")
-        if name == "mixtral":
-            check(all(r["prefill_digest"] == rs[0]["prefill_digest"] for r in rs),
-                  "mixtral: the ranks' prefill logits are not bit-equal")
+            check(r["digests"] == rs[0]["digests"], f"{name}: the ranks' decode logits are not bit-equal")
+        for i, r in enumerate(rs):
+            check(r["prefill_digest"] == rs[i - i % RANKS_MODEL]["prefill_digest"],
+                  f"{name}: the prefill logits of one data shard's ranks are not bit-equal")
+        prefill = torch.cat([rs[d * RANKS_MODEL]["prefill"] for d in range(n_data)])
         med = [statistics.median(r["steps_ms"]) for r in rs]
-        row = {"decode_step_ms": med, "collective_ms_per_step": [r["collective_ms_per_step"] for r in rs],
+        row = {"layers": cfg.n_layers, "prompt": prompt_len, "decode_step_ms": med,
+               "collective_ms_per_step": [r["collective_ms_per_step"] for r in rs],
                "allreduces_per_step": rs[0]["allreduces_per_step"],
                "allreduce_bytes_per_step": rs[0]["allreduce_bytes_per_step"],
+               "prefill_ms": [r["prefill_ms"] for r in rs], "build_s": [r["build_s"] for r in rs],
+               "prefill_allreduces": rs[0]["prefill_allreduces"],
+               "prefill_allreduce_bytes": rs[0]["prefill_allreduce_bytes"],
                "launches": [r["launches"] for r in rs], "prefill_launches": [r["prefill_launches"] for r in rs],
-               "peak_gib": [r["peak_gib"] for r in rs], "pool_pages_local": rs[0]["pool_pages_local"]}
-        misses = rs[0]["misses"]
-        if name == "mixtral":
-            flips_p, flips_d = _route_flips(res)
-            perr = torch.tensor(rs[0]["prefill_row_errs"])
-            derr = torch.tensor(rs[0]["decode_row_errs"])
+               "weight_bytes": [r["weight_bytes"] for r in rs], "oracle_weight_bytes": oracle["weight_bytes"],
+               "prefill_args": [r["prefill_args"] for r in rs],
+               "dryrun_prefill_args": [r["dryrun_prefill_args"] for r in rs],
+               "prefill_peak_gib": [r["prefill_peak_gib"] for r in rs],
+               "free_after_prefill_gib": [r["free_after_prefill_gib"] for r in rs],
+               "free_at_end_gib": [r["free_at_end_gib"] for r in rs],
+               "peak_gib": [r["peak_gib"] for r in rs], "oracle_peak_gib": oracle["peak_gib"],
+               "pool_pages_local": rs[0]["pool_pages_local"],
+               "kernel_check": [r["kernel_check"] for r in rs], "flash_check": [r["flash_check"] for r in rs]}
+        perr = _logit_errs(prefill[None], oracle["prefill"][None])[0]
+        derr = _logit_errs(rs[0]["decode"], oracle["decode"])
+        misses = _near_tie_misses(rs[0]["decode"], oracle["decode"])
+        if cfg.is_moe:
+            flips_p, flips_d = _route_flips(oracle, res)
             clean_p, clean_d = perr[~flips_p], derr[~flips_d]
-            row.update(expert_bytes=[r["expert_bytes"] for r in rs], prefill_ms=[r["prefill_ms"] for r in rs],
-                       prefill_err=float(clean_p.max()) if clean_p.numel() else None,
+            row.update(prefill_err=float(clean_p.max()) if clean_p.numel() else None,
                        max_err=float(clean_d.max()) if clean_d.numel() else None,
                        prefill_flip_rows=int(flips_p.sum()), decode_flip_rows=int(flips_d.sum()))
-            print(f"  (b) mixtral-8x7b ({SHARD_MIXTRAL_LAYERS} layers, capacity factor {SHARD_MOE_CAPACITY}): "
-                  f"expert bytes per rank {row['expert_bytes']}; sharded prefill of 8 x {MIXTRAL_PROMPT} tokens "
-                  f"{[round(x, 2) for x in row['prefill_ms']]} ms; logits vs the unsharded model, max |d| over "
-                  f"max |oracle| on rows whose router choices agree: prefill {row['prefill_err']}, decode "
-                  f"{row['max_err']} (tol {SHARD_LOGITS_TOL}); rows with a router choice that differs: prefill "
-                  f"{row['prefill_flip_rows']} of 8, decode {row['decode_flip_rows']} of {N_DECODE * 8}",
-                  flush=True)
-            for err in (row["prefill_err"], row["max_err"]):
-                check(err is None or err <= SHARD_LOGITS_TOL, f"mixtral: sharded logits disagree: {err}")
-            check(row["max_err"] is not None, "mixtral: every decode row's routing differs")
+            check(row["max_err"] is not None, f"{name}: every decode row's routing differs")
             misses = [m for m in misses if not flips_d[m[0], m[1]]]
         else:
-            row.update(max_err=rs[0]["max_err"], step_errs=rs[0]["step_errs"],
-                       kernel_check=[r["kernel_check"] for r in rs])
-            print(f"  ({'a' if name == 'llama' else 'c'}) {name}: sharded vs unsharded logits, max |d| over "
-                  f"max |oracle| {row['max_err']:.3e} (tol {SHARD_LOGITS_TOL}); each rank's paged kernel on its "
-                  f"stripe vs plain: " + "; ".join(
-                      f"offset {k['page_offset']} ({k['live_rows']} rows live) {k['scaled_err']:.2e}/{k['stat_err']:.2e}"
-                      for k in row["kernel_check"]), flush=True)
-            check(row["max_err"] <= SHARD_LOGITS_TOL, f"{name}: sharded logits disagree with the unsharded model")
+            row.update(prefill_err=float(perr.max()), max_err=float(derr.max()), step_errs=derr.amax(-1).tolist())
+        print(f"  ({tag}) {name} ({cfg.n_layers} layers, 8 x {prompt_len} tokens): weights a rank "
+              f"{[round(b / 2**30, 3) for b in row['weight_bytes']]} GiB of the unsharded "
+              f"{oracle['weight_bytes'] / 2**30:.2f} GiB; prefill arguments a rank {row['prefill_args']} bytes, the "
+              f"dry run's count with every leaf in the compute dtype {row['dryrun_prefill_args']}; logits vs the unsharded model, max |d| over max "
+              f"|oracle|: prefill {row['prefill_err']}, decode {row['max_err']} (tol {SHARD_LOGITS_TOL})"
+              + (f"; rows whose router choice differs: prefill {row['prefill_flip_rows']} of 8, decode "
+                 f"{row['decode_flip_rows']} of {N_DECODE * 8}" if cfg.is_moe else ""), flush=True)
+        for err in (row["prefill_err"], row["max_err"]):
+            check(err is None or err <= SHARD_LOGITS_TOL, f"{name}: sharded logits disagree with the unsharded model")
         for s, b, got, want, gap in misses:
             print(f"    greedy token differs at step {s}, row {b}: sharded {got}, oracle {want}; the oracle's "
                   f"top-2 gap {gap:.3e} of max |logit|", flush=True)
             check(gap <= SHARD_LOGITS_TOL, f"{name}: a greedy token differs where the oracle is no near-tie")
         row["greedy_misses"] = len(misses)
-        print(f"    {name} per rank: median decode step {[round(x, 3) for x in med]} ms (host clock, "
-              f"synchronised); {row['allreduces_per_step']:.0f} all-reduces a step, "
-              f"{row['allreduce_bytes_per_step']:.0f} bytes; inside them "
+        print(f"    {name} per rank: prefill {[round(x, 1) for x in row['prefill_ms']]} ms "
+              f"({row['prefill_allreduces']} all-reduces, {row['prefill_allreduce_bytes']} bytes); median decode "
+              f"step {[round(x, 3) for x in med]} ms (host clock, synchronised); {row['allreduces_per_step']:.0f} "
+              f"all-reduces a step, {row['allreduce_bytes_per_step']:.0f} bytes; inside them "
               f"{[round(x, 3) for x in row['collective_ms_per_step']]} ms a step; launches {row['launches']} "
-              f"(prefill {row['prefill_launches']}); peak {[round(x, 2) for x in row['peak_gib']]} GiB; "
-              f"{row['pool_pages_local']} pool pages a rank; {card}", flush=True)
+              f"(prefill {row['prefill_launches']}); peak {[round(x, 2) for x in row['peak_gib']]} GiB, card free "
+              f"after the prefill {[round(x, 2) for x in row['free_after_prefill_gib']]} GiB; "
+              f"{row['pool_pages_local']} pool pages a rank; paged on each stripe vs plain: " + "; ".join(
+                  f"offset {k['page_offset']} ({k['live_rows']} rows live) {k['scaled_err']:.2e}/{k['stat_err']:.2e}"
+                  for k in row["kernel_check"]) + "; flash on each rank's heads vs plain: " + "; ".join(
+                  f"{f['max_abs_err']:.2e}/{f['row_err']}" for f in row["flash_check"]) + f"; {card}", flush=True)
+        fl = row["flash_check"][1]
+        print(f"    flash on rank 1's local heads {fl['shape']}: kernel {fl['ms']:.4f} ms, plain {fl['plain_ms']:.4f} "
+              f"ms, SDPA {fl['library_ms']:.4f} ms, bound {fl['bound_ms']:.5f} ms ({fl['bound_by']}); {card}",
+              flush=True)
         out[name] = row
     shard = res[1]["llama"]["kernel_check"]
     print(f"  paged kernel on rank 1's stripe (llama, page_offset {shard['page_offset']}, "
           f"{shard['pages_local']} pages): {shard['ms']:.4f} ms, plain {shard['plain_ms']:.4f} ms, bound "
           f"{shard['bound_ms']:.5f} ms ({shard['bound_by']}: {shard['bytes']} bytes); {card}", flush=True)
     out["paged_shard"] = shard
-    print(f"  step 15 in {wall:.1f} s", flush=True)
+    print(f"  step 15 in {wall:.1f} s ({oracle_s:.1f} s of it the oracles)", flush=True)
     return out
 
 

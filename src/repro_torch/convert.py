@@ -7,9 +7,10 @@ e.g. ``jax.tree.map(np.asarray, params)`` of
 ``build_model(cfg).init(PRNGKey(0))[0]`` -- and returns the port's params
 with the same structure, shapes, dtypes and values; :func:`opt_state_from_jax`
 does the same for the AdamW state. Given an ``axis_info`` it returns this
-rank's params instead: the expert weights cut to the rank's shard
-(:func:`repro_torch.parallel.sharding.local_param_specs`), before they are
-copied. No JAX is imported here.
+rank's params instead, cut before they are copied: in the training layout
+the expert weights cut to the rank's shard
+(:func:`repro_torch.parallel.sharding.local_param_specs`), in the serving
+layout every leaf's ``param_shardings`` block. No JAX is imported here.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import PORTED
 from repro_torch.parallel.axisinfo import AxisInfo
-from repro_torch.parallel.sharding import local_param_specs, shard_leaf
+from repro_torch.parallel.sharding import param_specs, shard_leaf
 
 
 def _attn_block_shapes(cfg: ModelConfig, *lead: int) -> Dict:
@@ -112,14 +113,16 @@ def _convert(tree, shapes, device, path: Tuple[str, ...], take=lambda path, arr:
     return _to_torch(take(path, arr)).to(device)
 
 
-def params_from_jax(params_np, cfg: ModelConfig, device="cuda", axis_info: Optional[AxisInfo] = None):
+def params_from_jax(params_np, cfg: ModelConfig, device="cuda", axis_info: Optional[AxisInfo] = None,
+                    layout: str = "train"):
     """JAX param pytree (numpy leaves) -> the port's params on ``device``;
-    with ``axis_info``, this rank's (its experts or expert ffn columns)."""
+    with ``axis_info``, this rank's in ``layout``: ``"train"`` (its experts
+    or expert ffn columns) or ``"serving"`` (every leaf's block)."""
     shapes = param_shapes(cfg)
     device = resolve_device(device)
     if axis_info is None:
         return _convert(params_np, shapes, device, ())
-    specs = local_param_specs(shapes, cfg, axis_info)
+    specs = param_specs(cfg, axis_info, layout)
 
     def take(path, arr):
         spec = specs

@@ -11,9 +11,15 @@ ranks as rank 0, and counts what rank 0 runs with
 :mod:`repro_torch.launch.cost`. The params come from
 :func:`repro_torch.convert.param_shapes` (the real init draws from a
 generator, which fake tensors cannot), laid out as the port lays them out
-(:func:`repro_torch.parallel.sharding.shard_params`: the experts split over
-the model axis, every other leaf replicated), so the bytes are those of the
-port's layout, not the JAX package's. Fake tensors are CPU tensors, so
+(:func:`repro_torch.parallel.sharding.shard_params`): ``prefill`` and
+``decode`` cells in the serving layout, every leaf its ``param_shardings``
+block, the JAX package's own layout; ``train`` cells in the training
+layout (the experts split over the model axis, every other leaf
+replicated) until training takes the serving layout too. A prefill takes
+the global batch and reads this rank's rows of it, so its arguments count
+those rows (the block ``batch_shardings`` gives the rank, as the JAX
+package's ``in_shardings``); decode rows are replicated on every rank, and
+so are its tokens. Fake tensors are CPU tensors, so
 every attention call takes a plain path: prefill and training the JAX
 package's XLA path in PyTorch (``impl="xla"``), decode the paged kernel's
 plain version, as the JAX dry run takes its XLA path (``use_pallas=False``).
@@ -82,14 +88,14 @@ def fake_world(world_size: int):
         dist.destroy_process_group()
 
 
-def abstract_params(cfg: ModelConfig, axis_info: Optional[AxisInfo]):
-    """This rank's params as tensors of the current mode (fake or meta
-    inside one), every leaf in ``cfg.pdtype()``; the expert blocks are
-    copies, so that each holds only its own bytes."""
+def abstract_params(cfg: ModelConfig, axis_info: Optional[AxisInfo], layout: str = "train"):
+    """This rank's params in ``layout`` as tensors of the current mode
+    (fake or meta inside one), every leaf in ``cfg.pdtype()``; the blocks
+    are copies, so that each holds only its own bytes."""
     params = shd._map(lambda _, shape: torch.empty(shape, dtype=cfg.pdtype()), param_shapes(cfg))
     if axis_info is None:
         return params
-    return shd.shard_params(params, cfg, axis_info, copy=True)
+    return shd.shard_params(params, cfg, axis_info, copy=True, layout=layout)
 
 
 def _materialize(spec: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -114,26 +120,46 @@ def model_flops(cfg: ModelConfig, kind: str, batch: int, seq: int) -> int:
 
 
 def build_step(cfg: ModelConfig, kind: str, batch: int, seq: int, axis_info: Optional[AxisInfo]):
-    """``(fn, args)`` of one step of ``kind`` at the global ``batch`` x
-    ``seq``, its inputs made in the current mode: the train step (params,
+    """``(fn, args, held)`` of one step of ``kind`` at the global ``batch``
+    x ``seq``, its inputs made in the current mode: the train step (params,
     AdamW state and the global batch, as the port's sharded step takes
     it), a prefill, or one decode step over an empty cache for ``seq``
-    tokens (its pools padded and striped over the page axes)."""
+    tokens (its pools padded and striped over the page axes). ``held`` is
+    what the rank holds of ``args``: a prefill's batch cut to its rows."""
     model = build_model(cfg)
-    params = abstract_params(cfg, axis_info)
     if kind == "train":
+        params = abstract_params(cfg, axis_info)
         step = make_train_step(model, cfg, AdamWConfig(), axis_info)
         data = _materialize(S.train_batch_spec(cfg, batch, seq))
-        return step, (params, adamw_init(params), data)
+        args = (params, adamw_init(params), data)
+        return step, args, args
+    params = abstract_params(cfg, axis_info, layout="serving")
     if kind == "prefill":
-        data = _prefill_inputs(cfg, _materialize(S.prefill_batch_spec(cfg, batch, seq)))
-        return (lambda p, x: model.prefill(p, x, impl=IMPL, axis_info=axis_info)), (params, data)
+        spec = S.prefill_batch_spec(cfg, batch, seq)
+        data = _prefill_inputs(cfg, _materialize(spec))
+        held = data
+        if axis_info is not None:
+            blocks = shd.batch_shardings(spec, cfg, axis_info)
+            held = _prefill_inputs(cfg, {k: shd.shard_leaf(v, blocks[k], axis_info).clone() for k, v in
+                                         _materialize(spec).items()})
+        return (lambda p, x: model.prefill(p, x, impl=IMPL, axis_info=axis_info)), (params, data), (params, held)
     pad = axis_info.n_page_shards if axis_info is not None else 1
     cache = model.init_cache(batch, seq, device="cpu", pad_pages_to=pad)
     if axis_info is not None:
         cache = shd.shard_cache(cache, cfg, axis_info)
     tokens = torch.zeros(S.decode_tokens_spec(cfg, batch).shape, dtype=torch.int32)
-    return (lambda p, c, t: model.decode_step(p, c, t, impl=IMPL, axis_info=axis_info)), (params, cache, tokens)
+    args = (params, cache, tokens)
+    return (lambda p, c, t: model.decode_step(p, c, t, impl=IMPL, axis_info=axis_info)), args, args
+
+
+def arguments(cfg: ModelConfig, kind: str, batch: int, seq: int, axis_info: Optional[AxisInfo] = None) -> int:
+    """The argument bytes a rank holds for one step of ``kind`` (those
+    :func:`plan` records), counted on fake tensors without running the
+    step: no process group is needed."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        return C.storage_bytes(build_step(cfg, kind, batch, seq, axis_info)[2])
 
 
 def plan(cfg: ModelConfig, kind: str, batch: int, seq: int,
@@ -144,8 +170,8 @@ def plan(cfg: ModelConfig, kind: str, batch: int, seq: int,
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     with FakeTensorMode():
-        fn, args = build_step(cfg, kind, batch, seq, axis_info)
-        arg_bytes = C.storage_bytes(args)
+        fn, args, counted = build_step(cfg, kind, batch, seq, axis_info)
+        arg_bytes = C.storage_bytes(counted)
         held = {id(t.untyped_storage()) for t in C.tensors(args)}
         out, cost = C.measure(fn, *args)
         new_out = [t for t in C.tensors(out) if id(t.untyped_storage()) not in held]

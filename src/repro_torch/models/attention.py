@@ -2,12 +2,27 @@
 :mod:`repro.models.attention`.
 
 Weight layouts are the JAX package's: ``wq (d, H, hd)``, ``wk``/``wv
-(d, K, hd)``, ``wo (H, hd, d)``. Under an ``axis_info`` decode reads and
-writes a page pool striped over every mesh axis (the paper's page
-striping): each rank holds its stripe, writes only the pages it owns,
-computes partial online-softmax statistics over them, and the partials are
-combined with collectives; q, k, v, the tables and ``page_pos`` are
-replicated, as in the JAX package's ``shard_map`` body.
+(d, K, hd)``, ``wo (H, hd, d)``. Under an ``axis_info`` each may be this
+rank's block (``embed`` over ``data``, heads over ``model``; see
+:mod:`repro_torch.models.layers` for the rule of a product with a block):
+
+* **prefill** (:func:`attention_train`; the layer's ``data`` blocks are
+  regathered first) runs tensor-parallel over the model axis: the flash
+  kernel on this rank's H/tp q heads and their K/tp kv heads (or, where
+  the kv heads do not divide, the whole ``wk``/``wv`` with the kv heads
+  this rank's q heads read sliced out), ``wo`` a partial summed over the
+  model axis; the keys and values it returns for the cache are regathered
+  to every kv head;
+* **decode** (:func:`attention_decode`) reads and writes a page pool
+  striped over every mesh axis (the paper's page striping): each rank
+  holds its stripe, writes only the pages it owns, computes partial
+  online-softmax statistics over them, and the partials are combined with
+  collectives. q, k and v are partial products over ``data``, summed and
+  regathered to every head in one all-reduce, because the stripe holds
+  every head of its pages (the JAX package's ``shard_map`` takes them
+  replicated); the tables and ``page_pos`` are replicated. The rank takes
+  its own heads of the output into its block of ``wo``: a partial over
+  ``model``, summed, with the output regathered over ``data``.
 """
 
 from __future__ import annotations
@@ -18,9 +33,11 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, block_of, sharded_products, split
 from repro_torch.models.modules import dense_init
+from repro_torch.parallel import collectives
 from repro_torch.parallel.axisinfo import AxisInfo, page_offset_in_shard
+from repro_torch.parallel.sharding import FSDP_AXIS
 
 
 def attention_init(gen: torch.Generator, cfg: ModelConfig):
@@ -60,6 +77,21 @@ def out_proj(params, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return o.reshape(*o.shape[:-2], H * hd) @ wo.reshape(H * hd, d)
 
 
+def _kv_heads_read(cfg: ModelConfig, h_held: int, axis_info: AxisInfo) -> slice:
+    """The kv heads this rank's ``h_held`` q heads read, where the q heads
+    are split over the model axis and the kv heads are not: a slice that
+    the flash kernel's GQA grouping takes (every local q head, in order,
+    reads kv head ``j // (h_held / n_kv)``); raises where none does."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    first = collectives.axis_index(axis_info.model_axis, axis_info.mesh) * h_held
+    if h_held % g == 0:
+        return slice(first // g, first // g + h_held // g)
+    if g % h_held == 0:
+        return slice(first // g, first // g + 1)
+    raise ValueError(f"attn wk/wv: {cfg.n_heads} q heads split {h_held} a rank cannot read whole kv heads "
+                     f"({cfg.n_kv_heads}, groups of {g})")
+
+
 def attention_train(
     params,
     x: torch.Tensor,
@@ -70,6 +102,7 @@ def attention_train(
     rope: bool = True,
     return_kv: bool = False,
     impl: Optional[str] = None,
+    axis_info: Optional[AxisInfo] = None,
 ):
     """Full-sequence attention (training, prefill, encoder, cross). With
     ``return_kv`` also returns the (rotated) ``(k, v)`` for the paged cache.
@@ -77,7 +110,11 @@ def attention_train(
 
     ``kv_src`` switches to cross-attention: keys and values projected from
     that sequence, no RoPE, non-causal. The sliding window applies only to
-    causal attention."""
+    causal attention.
+
+    Under ``axis_info`` the weights may hold this rank's heads (their
+    ``embed`` dims whole): tensor-parallel over the model axis (module
+    docstring); the ``(k, v)`` returned hold every kv head."""
     if kv_src is not None:
         ct = cfg.cdtype()
         q = project(x, params["wq"], ct)
@@ -87,10 +124,21 @@ def attention_train(
     else:
         q, k, v = qkv(params, x, cfg, None, rope=rope)
     window = cfg.sliding_window if causal else None
+    ha = () if axis_info is None else split(q.shape[2], cfg.n_heads, axis_info.model_axis)
+    ka = () if axis_info is None else split(k.shape[2], cfg.n_kv_heads, axis_info.model_axis)
+    kf, vf = k, v
+    if ka and return_kv:  # every kv head, for the cache
+        kf, vf = (t.movedim(0, 2) for t in collectives.regather_many(
+            [k.movedim(2, 0), v.movedim(2, 0)], ka, axis_info.mesh))
+    elif ha and not ka:  # whole kv heads: the ones this rank's q heads read
+        read = _kv_heads_read(cfg, q.shape[2], axis_info)
+        k, v = k[:, :, read], v[:, :, read]
     o = ops.flash_attention(q, k, v, causal=causal, window=window, q_chunk=cfg.attn_chunk, impl=impl)
     out = out_proj(params, o, cfg)
+    if ha:
+        out = collectives.psum(out, ha, axis_info.mesh)
     if return_kv:
-        return out, (k, v)
+        return out, (kf, vf)
     return out
 
 
@@ -132,7 +180,10 @@ def attention_decode(
         axes, mesh = axis_info.page_axes, axis_info.mesh
         offset = page_offset_in_shard(axes, pool_k.shape[0], mesh)
     if update:
-        q, k, v = qkv(params, x, cfg, positions, rope=rope)
+        q, k, v = _decode_qkv(params, x, cfg, axis_info, update)
+        if rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
         out = ops.paged_update(pool_k, pool_v, cache["tables"], page_pos, lengths, k[:, 0], v[:, 0],
                                scale_k=sk, scale_v=sv, page_offset=offset)
         if quant:
@@ -140,7 +191,7 @@ def attention_decode(
         else:
             pool_k, pool_v, page_pos = out
     else:  # only q is needed: the keys and values are already in the pool
-        q = project(x, params["wq"], cfg.cdtype())
+        q = _decode_qkv(params, x, cfg, axis_info, update)[0]
         if rope:
             q = apply_rope(q, positions, cfg.rope_theta)
     o = ops.paged_attention(
@@ -151,7 +202,48 @@ def attention_decode(
     new_cache = dict(cache, pool_k=pool_k, pool_v=pool_v, page_pos=page_pos)
     if quant:
         new_cache.update(scale_k=sk, scale_v=sv)
-    return out_proj(params, o[:, None], cfg), new_cache
+    return _decode_out(params, o[:, None], cfg, axis_info), new_cache
+
+
+def _decode_qkv(params, x: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisInfo], update: bool):
+    """The new token's q (and k, v with ``update``), every head, unrotated.
+    Under ``axis_info`` the weights' blocks give partial products over
+    ``data``, summed and regathered over the model axis: one all-reduce
+    for the q, k and v that share their split (two where the kv heads do
+    not divide the model axis)."""
+    names = ("wq", "wk", "wv") if update else ("wq",)
+    if axis_info is None:
+        return [project(x, params[n], cfg.cdtype()) for n in names]
+    mesh, ct = axis_info.mesh, cfg.cdtype()
+    d = params["wq"].shape[0]
+    da = split(d, cfg.d_model, FSDP_AXIS)
+    xl = block_of(x, -1, da, mesh)
+    groups = {}
+    for n in names:
+        w = params[n]
+        full = cfg.n_heads if n == "wq" else cfg.n_kv_heads
+        groups.setdefault(split(w.shape[1], full, axis_info.model_axis), []).append(n)
+    out = {}
+    for ha, group in groups.items():
+        ws = [params[n].to(ct).reshape(d, -1) for n in group]
+        for n, y in zip(group, sharded_products(xl, ws, mesh, sum_axes=da, gather_axes=ha)):
+            out[n] = y.reshape(*x.shape[:-1], -1, cfg.head_dim)
+    return [out[n] for n in names]
+
+
+def _decode_out(params, o: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisInfo]) -> torch.Tensor:
+    """``o`` (B, 1, H, hd), every head, through ``wo``; under ``axis_info``
+    this rank's heads into its block: summed over the model axis and
+    regathered over ``data`` in one all-reduce."""
+    if axis_info is None:
+        return out_proj(params, o, cfg)
+    wo = params["wo"].to(cfg.cdtype())
+    H_held, hd, d_held = wo.shape
+    mesh = axis_info.mesh
+    ha = split(H_held, cfg.n_heads, axis_info.model_axis)
+    da = split(d_held, cfg.d_model, FSDP_AXIS)
+    o = block_of(o.reshape(*o.shape[:-2], -1), -1, ha, mesh)
+    return sharded_products(o, [wo.reshape(H_held * hd, d_held)], mesh, sum_axes=ha, gather_axes=da)[0]
 
 
 def init_decode_cache(

@@ -45,7 +45,7 @@ def _ffn(params, h: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisInfo
     """The feed-forward half: (out, aux loss), aux 0 for a dense block."""
     if cfg.is_moe:
         return moe_mod.moe_ffn(params, h, cfg, axis_info, local_batch=local_batch)
-    return mlp(params, h, cfg), torch.zeros((), dtype=torch.float32, device=h.device)
+    return mlp(params, h, cfg, axis_info), torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def block_apply(
@@ -53,12 +53,14 @@ def block_apply(
     return_kv: bool = False, impl: Optional[str] = None, local_batch: bool = False,
 ):
     """Full-sequence block (prefill, encoder, training). Returns (x, aux),
-    or (x, aux, (k, v)). Under ``axis_info`` only a MoE ffn is split over
-    the ranks; attention runs whole on every rank (its K/V are replicated,
-    as the JAX package's values outside ``shard_map``). ``local_batch``:
-    ``x`` is this rank's data shard (training; :func:`moe_mod.moe_ffn`)."""
+    or (x, aux, (k, v)). Under ``axis_info`` the weights are whole or hold
+    this rank's heads, ffn columns or experts (their ``embed`` dims whole:
+    a prefill regathers them first), which run split over the model axis;
+    the returned K/V hold every kv head. ``local_batch``: ``x`` is this
+    rank's data shard (training, prefill; :func:`moe_mod.moe_ffn`)."""
     h = rmsnorm(x, params["ln1"])
-    a, kv = attn.attention_train(params["attn"], h, cfg, causal=causal, return_kv=True, impl=impl)
+    a, kv = attn.attention_train(params["attn"], h, cfg, causal=causal, return_kv=True, impl=impl,
+                                 axis_info=axis_info)
     x = x + a
     f, aux = _ffn(params["ffn"], rmsnorm(x, params["ln2"]), cfg, axis_info, local_batch)
     x = x + f
@@ -85,12 +87,14 @@ def dec_block_init(gen: torch.Generator, cfg: ModelConfig):
 
 
 def dec_block_apply(params, x: torch.Tensor, enc_out: torch.Tensor, cfg: ModelConfig, *,
-                    impl: Optional[str] = None):
+                    impl: Optional[str] = None, axis_info: Optional[AxisInfo] = None):
     """Full-sequence decoder block (prefill). Returns (x, the self-attention's (k, v))."""
-    a, kv = attn.attention_train(params["self"], rmsnorm(x, params["ln1"]), cfg, return_kv=True, impl=impl)
+    a, kv = attn.attention_train(params["self"], rmsnorm(x, params["ln1"]), cfg, return_kv=True, impl=impl,
+                                 axis_info=axis_info)
     x = x + a
-    x = x + attn.attention_train(params["cross"], rmsnorm(x, params["ln2"]), cfg, kv_src=enc_out, impl=impl)
-    return x + mlp(params["mlp"], rmsnorm(x, params["ln3"]), cfg), kv
+    x = x + attn.attention_train(params["cross"], rmsnorm(x, params["ln2"]), cfg, kv_src=enc_out, impl=impl,
+                                 axis_info=axis_info)
+    return x + mlp(params["mlp"], rmsnorm(x, params["ln3"]), cfg, axis_info), kv
 
 
 def dec_block_decode(params, x: torch.Tensor, self_cache: attn.CacheLayer, cross_cache: attn.CacheLayer,
@@ -106,7 +110,7 @@ def dec_block_decode(params, x: torch.Tensor, self_cache: attn.CacheLayer, cross
     a, _ = attn.attention_decode(params["cross"], rmsnorm(x, params["ln2"]), cross_cache, enc_len, cfg,
                                  axis_info, update=False, rope=False, impl=impl)
     x = x + a
-    return x + mlp(params["mlp"], rmsnorm(x, params["ln3"]), cfg), self_cache
+    return x + mlp(params["mlp"], rmsnorm(x, params["ln3"]), cfg, axis_info), self_cache
 
 
 # ------------------------------ ssm block ------------------------------
@@ -115,16 +119,19 @@ def ssm_block_init(gen: torch.Generator, cfg: ModelConfig):
             "ssm": ssm_mod.ssm_init(gen, cfg)}
 
 
-def ssm_block_apply(params, x: torch.Tensor, cfg: ModelConfig, *, return_state: bool = False):
+def ssm_block_apply(params, x: torch.Tensor, cfg: ModelConfig, *, return_state: bool = False,
+                    axis_info: Optional[AxisInfo] = None):
     """x + mixer(norm(x)); with ``return_state`` also the mixer's state for decode."""
     if not return_state:
-        return x + ssm_mod.ssm_forward(params["ssm"], rmsnorm(x, params["ln"]), cfg)
-    y, state = ssm_mod.ssm_forward(params["ssm"], rmsnorm(x, params["ln"]), cfg, return_state=True)
+        return x + ssm_mod.ssm_forward(params["ssm"], rmsnorm(x, params["ln"]), cfg, axis_info=axis_info)
+    y, state = ssm_mod.ssm_forward(params["ssm"], rmsnorm(x, params["ln"]), cfg, return_state=True,
+                                   axis_info=axis_info)
     return x + y, state
 
 
-def ssm_block_decode(params, x: torch.Tensor, state: ssm_mod.SSMState, cfg: ModelConfig):
-    y, state = ssm_mod.ssm_decode(params["ssm"], rmsnorm(x, params["ln"]), state, cfg)
+def ssm_block_decode(params, x: torch.Tensor, state: ssm_mod.SSMState, cfg: ModelConfig,
+                     axis_info: Optional[AxisInfo] = None):
+    y, state = ssm_mod.ssm_decode(params["ssm"], rmsnorm(x, params["ln"]), state, cfg, axis_info)
     return x + y, state
 
 

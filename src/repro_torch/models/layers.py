@@ -1,6 +1,15 @@
 """Shared layers, the counterparts of :mod:`repro.models.layers`: RMSNorm
 (with the JAX package's custom VJP), half-split RoPE, gated SiLU MLP,
-embeddings, the tied f32 unembedding and the training cross-entropy."""
+embeddings, the tied f32 unembedding and the training cross-entropy.
+
+Under an ``axis_info`` a weight may be this rank's block
+(:mod:`repro_torch.parallel.sharding`'s serving layout); which of its dims
+are blocks is read from its shape (:func:`split`). The rule for a product
+with a block (:func:`sharded_products`): a contracting dim held as a block
+meets the matching block of the activation, and the partial products are
+summed over its axes; an output dim held as a block is regathered, or kept
+local where the next op takes the local part. The residual stream stays
+whole on every rank."""
 
 from __future__ import annotations
 
@@ -9,6 +18,51 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import collectives
+from repro_torch.parallel.axisinfo import AxisInfo, Mesh
+from repro_torch.parallel.sharding import FSDP_AXIS
+
+Axes = Tuple[str, ...]
+
+
+def split(n_held: int, n_full: int, axis: str) -> Axes:
+    """The axes a dim of ``n_held`` of ``n_full`` is split over: ``()``
+    when it is whole, ``(axis,)`` when it is this rank's block (the layout
+    was checked against ``param_shardings`` by
+    :func:`repro_torch.parallel.sharding.held_specs`)."""
+    return () if n_held == n_full else (axis,)
+
+
+def block_of(x: torch.Tensor, dim: int, axes: Axes, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over ``axes`` (a view; ``x``
+    itself when ``axes`` is empty)."""
+    if not axes:
+        return x
+    n = collectives.axis_size(axes, mesh)
+    b = x.shape[dim] // n
+    return x.narrow(dim, collectives.axis_index(axes, mesh) * b, b)
+
+
+def gather_last(x: torch.Tensor, axes: Axes, mesh: Mesh) -> torch.Tensor:
+    """The whole of ``x``'s last dim, of which ``x`` holds this rank's block over ``axes``."""
+    if not axes:
+        return x
+    return collectives.regather_many([x.movedim(-1, 0)], axes, mesh)[0].movedim(0, -1)
+
+
+def sharded_products(x: torch.Tensor, ws, mesh: Optional[Mesh], sum_axes: Axes = (),
+                     gather_axes: Axes = ()) -> list:
+    """``[x @ w for w in ws]`` (``ws`` 2-D, one dtype), summed over
+    ``sum_axes`` (their contracting dim is a block there, and ``x`` is the
+    matching block) and with the last dim regathered over ``gather_axes``:
+    all of it in one all-reduce."""
+    outs = [x @ w for w in ws]
+    if not sum_axes and not gather_axes:
+        return outs
+    if not gather_axes:
+        return collectives.regather_many(outs, (), mesh, sum_axes)
+    whole = collectives.regather_many([o.movedim(-1, 0) for o in outs], gather_axes, mesh, sum_axes)
+    return [o.movedim(0, -1) for o in whole]
 
 
 def _stat_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -70,21 +124,47 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp(params, x: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisInfo] = None) -> torch.Tensor:
+    """Gated SiLU MLP. Under ``axis_info`` with blocks of ``wi``/``wg``
+    ``(embed -> data, ffn -> model)`` and ``wo`` ``(ffn, embed)``: the
+    hidden stays local over the model axis, the output whole."""
     ct = cfg.cdtype()
-    h = x @ params["wi"].to(ct)
-    g = x @ params["wg"].to(ct)
+    wi, wg, wo = (params[k].to(ct) for k in ("wi", "wg", "wo"))
+    if axis_info is None:
+        h = x @ wi
+        g = x @ wg
+        return (torch.nn.functional.silu(g) * h) @ wo
+    mesh = axis_info.mesh
+    da = split(wi.shape[0], cfg.d_model, FSDP_AXIS)
+    fa = split(wi.shape[1], cfg.d_ff, axis_info.model_axis)
+    h, g = sharded_products(block_of(x, -1, da, mesh), [wi, wg], mesh, sum_axes=da)
     h = torch.nn.functional.silu(g) * h
-    return h @ params["wo"].to(ct)
+    return sharded_products(h, [wo], mesh, sum_axes=fa, gather_axes=da)[0]
 
 
-def embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return params["table"][tokens].to(cfg.cdtype())
+def embed(params, tokens: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisInfo] = None) -> torch.Tensor:
+    """Table rows of ``tokens`` in the compute dtype. Under ``axis_info``
+    with the table's vocab block: the rows this rank holds, zeros for the
+    rest, summed over the model axis (exact: one rank adds each row)."""
+    table = params["table"]
+    va = () if axis_info is None else split(table.shape[0], cfg.padded_vocab, axis_info.model_axis)
+    if not va:
+        return table[tokens].to(cfg.cdtype())
+    mesh, n = axis_info.mesh, table.shape[0]
+    local = tokens.long() - collectives.axis_index(va, mesh) * n
+    hit = (local >= 0) & (local < n)
+    rows = torch.where(hit[..., None], table[local.clamp(0, n - 1)], torch.zeros((), dtype=table.dtype,
+                                                                                  device=table.device))
+    return collectives.psum(rows, va, mesh).to(cfg.cdtype())
 
 
-def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Tied unembedding -> logits over the padded vocab (float32)."""
-    return x.float() @ params["table"].float().T
+def unembed(params, x: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisInfo] = None) -> torch.Tensor:
+    """Tied unembedding -> logits over the padded vocab (float32); under
+    ``axis_info`` computed on the table's vocab block and regathered."""
+    logits = x.float() @ params["table"].float().T
+    if axis_info is None:
+        return logits
+    return gather_last(logits, split(logits.shape[-1], cfg.padded_vocab, axis_info.model_axis), axis_info.mesh)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,

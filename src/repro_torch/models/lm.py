@@ -3,9 +3,12 @@
 
 ``build_model(cfg)`` returns a :class:`Model` of plain functions:
 
-* ``init(seed=0, device="cuda", dtype=None) -> params`` -- nested dicts with
-  the JAX package's layout, per-layer leaves stacked ``(L, ...)`` (the
-  hybrid's Mamba2 layers ``(n_groups, per_group, ...)``);
+* ``init(seed=0, device="cuda", dtype=None, axis_info=None) -> params`` --
+  nested dicts with the JAX package's layout, per-layer leaves stacked
+  ``(L, ...)`` (the hybrid's Mamba2 layers ``(n_groups, per_group, ...)``);
+  with ``axis_info`` this rank's blocks of the serving layout, each layer
+  drawn whole and cut, so that no more than one layer's full leaves are
+  ever held (bit-equal to the blocks of the unsharded init);
 * ``prefill(params, inputs, impl=None, axis_info=None) -> (logits, cache)``,
   ``inputs`` tokens ``(B, S)`` or embeddings ``(B, S, d)``, or for the
   encoder-decoder the JAX package's batch dict ``{"enc_embeds": (B, S_enc,
@@ -32,21 +35,35 @@ autograd; the training loss's attention is ``ops.flash_attention``'s
 backward; neither CUDA kernel runs in training.
 
 Across ranks (``axis_info``, one process per rank; see
-:mod:`repro_torch.parallel.sharding`): every rank computes the whole model
-on replicated activations, with a MoE's experts split over the model axis.
-``prefill`` returns a replicated cache without decode-headroom pages (the
-JAX package's distributed layout: the engine's allocator owns headroom),
-which :func:`repro_torch.parallel.sharding.shard_cache` stripes for
-``decode_step``; ``decode_step`` takes the pools striped and the SSM states
-replicated (the JAX package shards those over the batch axes; each row's
-state depends on that row alone, so the numbers are the same). The JAX
-package's layout hints (``constrain_batch``, ``_constrain_logits``) have no
-effect on the numbers and no counterpart here. ``train_loss`` with an
-``axis_info`` takes the global batch, as the JAX package's does, and
-computes on this rank's block of its rows (every row when they do not
-divide over the batch axes): its loss and metrics are the rank's shares,
-whose sums over the batch axes are the JAX package's values
-(:func:`_shard_batch`).
+:mod:`repro_torch.parallel.sharding`), serving takes the params in the
+serving layout (each leaf its ``param_shardings`` block; the training
+layout, experts split and every other leaf whole, is read too: the model
+code reads each leaf's split from its shape):
+
+* ``prefill`` takes the global batch and computes this rank's block of its
+  rows over the batch axes (every row when they do not divide,
+  :func:`_row_block`). Layer by layer it regathers the layer's ``data``
+  blocks (FSDP, the gathered copy freed before the next layer) and runs
+  the heads, ffn and experts split over the model axis. It returns this
+  rank's rows of the logits (the vocab whole, as the JAX package's
+  ``out_shardings``) and a decode cache without headroom pages (the JAX
+  package's distributed rule: the engine's allocator owns headroom) whose
+  pools are already this rank's stripe (:func:`_layer_pages`), with the
+  SSM states of every row;
+* ``decode_step`` keeps the rows replicated on every rank and the weights
+  on their ranks: every product is a partial over the weight's block,
+  summed, and only activations move (``layers.sharded_products``). It
+  takes the pools striped and the SSM states replicated (the JAX package
+  shards those over the batch axes; each row's state depends on that row
+  alone, so the numbers are the same).
+
+The JAX package's layout hints (``constrain_batch``, ``_constrain_logits``)
+have no effect on the numbers and no counterpart here. ``train_loss`` with
+an ``axis_info`` takes the training layout and the global batch, as the
+JAX package's does, and computes on this rank's block of its rows (every
+row when they do not divide over the batch axes): its loss and metrics are
+the rank's shares, whose sums over the batch axes are the JAX package's
+values (:func:`_shard_batch`).
 """
 
 from __future__ import annotations
@@ -64,7 +81,10 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import cross_entropy, embed, rmsnorm, unembed
 from repro_torch.models.modules import embed_init
+from repro_torch.parallel import collectives
+from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.axisinfo import AxisInfo
+from repro_torch.parallel.sharding import FSDP_AXIS, WHOLE_AT_USE
 
 PORTED = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec", "audio")
 MOE_AUX_WEIGHT = 0.01
@@ -170,14 +190,17 @@ def _layer(blocks, i: int):
     return _tree_map(lambda _, t: t[i], blocks)
 
 
-def _stack_init(gen: torch.Generator, n_layers: int, init_one, dtype: Optional[torch.dtype]):
+def _stack_init(gen: torch.Generator, n_layers: int, init_one, dtype: Optional[torch.dtype], keep=None):
     """``n_layers`` draws of ``init_one(gen)`` stacked ``(n_layers, ...)``.
     Each stacked leaf is allocated once and filled layer by layer, so the
     peak is the stacked weights plus one layer as drawn; with ``dtype`` the
-    leaves are stored in it (``_F32_LEAVES`` in f32)."""
+    leaves are stored in it (``_F32_LEAVES`` in f32); ``keep(layer)`` maps
+    each layer as drawn to what is stored (this rank's blocks)."""
     stacked = None
     for i in range(n_layers):
         layer = init_one(gen)
+        if keep is not None:
+            layer = keep(layer)
         if stacked is None:
             stacked = _tree_map(
                 lambda key, t: torch.empty((n_layers, *t.shape), device=t.device,
@@ -197,17 +220,91 @@ def _copy_layer(stacked, layer, i: int) -> None:
             stacked[k][i].copy_(v)
 
 
+def _blocks(tree, specs, axis_info: Optional[AxisInfo], copy: bool = True):
+    """This rank's blocks of ``tree`` under ``specs`` (copies unless not
+    ``copy``); the tree itself without an ``axis_info``."""
+    if axis_info is None:
+        return tree
+    return shd._map(lambda _, t, s: (shd.shard_leaf(t, s, axis_info).clone() if copy else
+                                     shd.shard_leaf(t, s, axis_info)) if len(s) else t, tree, specs)
+
+
+def _init_specs(axis_info: Optional[AxisInfo], cfg: ModelConfig):
+    """The serving layout's specs for an init under ``axis_info``, else None."""
+    return None if axis_info is None else shd.serving_specs(cfg, axis_info)
+
+
+def _stack_keep(specs, axis_info: Optional[AxisInfo], lead: int = 1):
+    """``_stack_init``'s ``keep``: a drawn layer's blocks (views, copied into the stack)."""
+    if axis_info is None:
+        return None
+    layer = shd.layer_specs(specs, lead)
+    return lambda tree: _blocks(tree, layer, axis_info, copy=False)
+
+
+def _row_block(n_rows: int, axis_info: Optional[AxisInfo]) -> Optional[slice]:
+    """The rows of a global batch this rank prefills: its block over the
+    batch axes when they divide ``n_rows`` (``_shard_batch``'s rule), else
+    None (every row)."""
+    if axis_info is None or n_rows % axis_info.n_batch_shards:
+        return None
+    b = n_rows // axis_info.n_batch_shards
+    i = axis_info.mesh.axes_index(axis_info.batch_axes)
+    return slice(i * b, (i + 1) * b)
+
+
+def _take_rows(inputs, rows: Optional[slice]):
+    """``inputs`` (a tensor or a dict of them) cut to ``rows``."""
+    if rows is None:
+        return inputs
+    if isinstance(inputs, dict):
+        return {k: v[rows] for k, v in inputs.items()}
+    return inputs[rows]
+
+
+def _held(params, cfg: ModelConfig, axis_info: Optional[AxisInfo]):
+    """The specs ``params`` are held in (checked against the serving
+    layout), or None without an ``axis_info``."""
+    return None if axis_info is None else shd.held_specs(params, cfg, axis_info)
+
+
+def _prefill_layer(lp, specs, axis_info: Optional[AxisInfo]):
+    """One layer's weights as a prefill under ``axis_info`` uses them: every
+    ``data`` block regathered (FSDP: one all-reduce, freed with the layer),
+    and the leaves used whole regathered over the model axis too."""
+    if axis_info is None:
+        return lp
+    lp, specs = shd.gather_over(lp, specs, axis_info, (FSDP_AXIS,))
+    return shd.gather_over(lp, specs, axis_info, (axis_info.model_axis,), keys=WHOLE_AT_USE)[0]
+
+
+def _decode_params(params, specs, axis_info: Optional[AxisInfo]):
+    """The params a decode step under ``axis_info`` uses: the leaves used
+    whole (norm scales, conv taps, gated norm: a few KB a layer)
+    regathered once a step, every other leaf its block."""
+    if axis_info is None:
+        return params
+    return shd.gather_over(params, specs, axis_info, (FSDP_AXIS, axis_info.model_axis), keys=WHOLE_AT_USE)[0]
+
+
+def _whole_norm(x: torch.Tensor, axis_info: Optional[AxisInfo], cfg: ModelConfig) -> torch.Tensor:
+    """A top-level norm scale, whole."""
+    if axis_info is None or x.shape[-1] == cfg.d_model:
+        return x
+    return shd.gather_leaf(x, shd.P(FSDP_AXIS), axis_info)
+
+
 def _generator(seed: int, device) -> torch.Generator:
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
     return gen
 
 
-def _inputs_to_h(params, inputs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _inputs_to_h(params, inputs: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisInfo] = None):
     """Tokens (B, S), or embeddings (B, S, d) as a floating tensor."""
     if inputs.is_floating_point():
         return inputs.to(cfg.cdtype())
-    return embed(params["embed"], inputs, cfg)
+    return embed(params["embed"], inputs, cfg, axis_info)
 
 
 def _train_impl(cfg: ModelConfig, impl: str) -> str:
@@ -300,12 +397,53 @@ def _pages_extra(axis_info: Optional[AxisInfo]) -> int:
     return 0 if axis_info is not None else 1
 
 
-def _paged_cache(cfg: ModelConfig, ks, vs, extra: int = 1) -> Dict[str, torch.Tensor]:
-    """Each attention layer's prefill K/V laid out as pages with ``extra``
-    headroom pages per sequence, stacked over layers."""
-    paged = [ops.prefill_into_pages(k, v, cfg.kv_page_tokens, extra_pages=extra) for k, v in zip(ks, vs)]
-    pool_k, pool_v, tables, page_pos = (torch.stack(parts) for parts in zip(*paged))
-    return _pool_cache(cfg, pool_k, pool_v, tables, page_pos)
+def _layer_pages(cfg: ModelConfig, k, v, extra: int = 1, axis_info: Optional[AxisInfo] = None,
+                 rows: Optional[slice] = None, n_rows: int = 0) -> Dict[str, torch.Tensor]:
+    """One attention layer's prefill K/V (B, S, K, hd) laid out as pages
+    with ``extra`` headroom pages per sequence (int8 pools quantized), row
+    b's pages at ``b*R ...``. Under ``axis_info`` ``k``/``v`` are this
+    rank's ``rows`` (of ``n_rows``; every row when None) and the pools come
+    back as this rank's stripe over ``page_axes``, padded as
+    :func:`repro_torch.parallel.sharding.shard_cache` pads them, beside the
+    tables and ``page_pos`` of every row. Where the rows are this rank's
+    data shard and the pages divide over ``page_axes`` (ordered batch axes
+    first), that shard's pages are exactly the stripes of its model ranks,
+    and the rank keeps its own; otherwise the rows are regathered and
+    striped. Only the stripe outlives the call."""
+    pool_k, pool_v, tables, page_pos = ops.prefill_into_pages(k, v, cfg.kv_page_tokens, extra_pages=extra)
+    if axis_info is None:
+        return _pool_cache(cfg, pool_k, pool_v, tables, page_pos)
+    R = tables.shape[1]
+    dev = pool_k.device
+    tables = torch.arange(n_rows * R, dtype=torch.int32, device=dev).reshape(n_rows, R)
+    page_pos = page_pos[:1].expand(n_rows, R).contiguous()
+    n = axis_info.n_page_shards
+    if rows is not None and (n_rows * R) % n == 0:
+        stripe = n_rows * R // n
+        m = collectives.axis_index(axis_info.model_axis, axis_info.mesh)
+        layer = _pool_cache(cfg, pool_k, pool_v, tables, page_pos)
+        return {k: t[m * stripe:(m + 1) * stripe].clone() if k in shd.POOL_LEAVES else t for k, t in layer.items()}
+    if rows is not None:
+        pool_k, pool_v = collectives.regather_many([pool_k, pool_v], axis_info.batch_axes, axis_info.mesh)
+    layer = shd.shard_cache({k: t[None] for k, t in _pool_cache(cfg, pool_k, pool_v, tables, page_pos).items()},
+                            cfg, axis_info)
+    return {k: t[0] for k, t in layer.items()}
+
+
+def _paged_cache(layers) -> Dict[str, torch.Tensor]:
+    """The per-layer caches of :func:`_layer_pages` stacked over layers."""
+    return {k: torch.stack([layer[k] for layer in layers]) for k in layers[0]}
+
+
+def _rows_states(states, rows: Optional[slice], axis_info: Optional[AxisInfo]):
+    """SSM states (L, rows, ...) of this rank's rows regathered to every
+    row (decode keeps them replicated)."""
+    if rows is None:
+        return states
+    names = list(states)
+    whole = collectives.regather_many([states[k].movedim(1, 0) for k in names], axis_info.batch_axes,
+                                      axis_info.mesh)
+    return {k: w.movedim(0, 1).contiguous() for k, w in zip(names, whole)}
 
 
 def _lengths(Bb: int, S: int, device) -> torch.Tensor:
@@ -321,10 +459,10 @@ def _attn_decode(params, h, kv, i: int, lengths, cfg: ModelConfig, impl, axis_in
     return h, new["page_pos"]
 
 
-def _ssm_decode(params, h, states, i: int, cfg: ModelConfig):
+def _ssm_decode(params, h, states, i: int, cfg: ModelConfig, axis_info=None):
     """Mamba2 layer ``i`` one decode step, its new state written in place
     into the stacked ``states``."""
-    h, new = B.ssm_block_decode(params, h, {name: t[i] for name, t in states.items()}, cfg)
+    h, new = B.ssm_block_decode(params, h, {name: t[i] for name, t in states.items()}, cfg, axis_info)
     for name, t in states.items():
         t[i].copy_(new[name])
     return h
@@ -332,17 +470,23 @@ def _ssm_decode(params, h, states, i: int, cfg: ModelConfig):
 
 # ================================ decoder-only ================================
 def _decoder_lm(cfg: ModelConfig) -> Model:
-    def init(seed: int = 0, device="cuda", dtype: Optional[torch.dtype] = None):
+    def init(seed: int = 0, device="cuda", dtype: Optional[torch.dtype] = None,
+             axis_info: Optional[AxisInfo] = None):
         """Random weights from ``seed``, drawn layer by layer (see
         :func:`_stack_init`). With ``dtype`` (for serving: the compute
         dtype) the block weights and the final norm are stored in it, the
         MoE router excepted, so that :func:`serving_params` copies nothing;
-        the values are those of the default init cast to ``dtype``."""
+        the values are those of the default init cast to ``dtype``. With
+        ``axis_info``, this rank's blocks of the serving layout."""
         gen = _generator(seed, device)
+        specs = _init_specs(axis_info, cfg)
         table = embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.pdtype())
-        blocks = _stack_init(gen, cfg.n_layers, lambda g: B.block_init(g, cfg), dtype)
+        blocks = _stack_init(gen, cfg.n_layers, lambda g: B.block_init(g, cfg), dtype,
+                             _stack_keep(specs and specs["blocks"], axis_info))
         ln_f = torch.ones((cfg.d_model,), dtype=dtype or cfg.pdtype(), device=gen.device)
-        return {"embed": {"table": table}, "blocks": blocks, "ln_f": ln_f}
+        params = {"embed": {"table": table}, "blocks": blocks, "ln_f": ln_f}
+        return params if specs is None else dict(params, embed=_blocks(params["embed"], specs["embed"], axis_info),
+                                                 ln_f=_blocks(ln_f, specs["ln_f"], axis_info))
 
     def init_cache(batch: int, seq_len: int, device="cuda", pad_pages_to: int = 1):
         cache, lengths = attn.init_decode_cache(
@@ -357,20 +501,25 @@ def _decoder_lm(cfg: ModelConfig) -> Model:
         embeddings (B, S, d) (a floating tensor); S a multiple of
         ``kv_page_tokens``. Returns the last position's f32 logits
         (B, padded_vocab) and a paged cache with one headroom page per
-        sequence, none under ``axis_info`` (int8 pools quantized here, for
-        an int8 config)."""
-        h = _inputs_to_h(params, inputs, cfg)
-        Bb, S = h.shape[:2]
-        ks, vs = [], []
+        sequence (int8 pools quantized here, for an int8 config). Under
+        ``axis_info``: this rank's rows of the logits and the striped cache
+        without headroom (module docstring)."""
+        specs = _held(params, cfg, axis_info)
+        n_rows = inputs.shape[0]
+        rows = _row_block(n_rows, axis_info)
+        h = _inputs_to_h(params, _take_rows(inputs, rows), cfg, axis_info)
+        S = h.shape[1]
+        pages = []
         for i in range(cfg.n_layers):
-            h, _, (k, v) = B.block_apply(_layer(params["blocks"], i), h, cfg, axis_info, return_kv=True,
-                                         impl=impl)
-            ks.append(k)
-            vs.append(v)
-        h = rmsnorm(h, params["ln_f"])
-        logits = unembed(params["embed"], h[:, -1:], cfg)[:, 0]
-        kv = _paged_cache(cfg, ks, vs, _pages_extra(axis_info))
-        return logits, {"kv": kv, "lengths": _lengths(Bb, S, h.device)}
+            lp = _prefill_layer(_layer(params["blocks"], i), specs and shd.layer_specs(specs["blocks"]), axis_info)
+            h, _, (k, v) = B.block_apply(lp, h, cfg, axis_info, return_kv=True, impl=impl,
+                                         local_batch=rows is not None)
+            del lp
+            pages.append(_layer_pages(cfg, k, v, _pages_extra(axis_info), axis_info, rows, n_rows))
+        h = rmsnorm(h, _whole_norm(params["ln_f"], axis_info, cfg))
+        logits = unembed(params["embed"], h[:, -1:], cfg, axis_info)[:, 0]
+        kv = _paged_cache(pages)
+        return logits, {"kv": kv, "lengths": _lengths(n_rows, S, h.device)}
 
     @torch.no_grad()
     def decode_step(params, cache, tokens: torch.Tensor, impl: Optional[str] = None,
@@ -378,15 +527,16 @@ def _decoder_lm(cfg: ModelConfig) -> Model:
         """tokens (B,). Appends each sequence's token to the pools in place
         (an int8 pool's scales too, so they come back updated in place); only
         ``page_pos`` is re-stacked. Under ``axis_info`` the pools are this
-        rank's stripes."""
-        h = embed(params["embed"], tokens[:, None], cfg)
+        rank's stripes and the params its blocks (every row on every rank)."""
+        params = _decode_params(params, _held(params, cfg, axis_info), axis_info)
+        h = embed(params["embed"], tokens[:, None], cfg, axis_info)
         lengths, kv = cache["lengths"], cache["kv"]
         page_pos = []
         for i in range(cfg.n_layers):
             h, pp = _attn_decode(_layer(params["blocks"], i), h, kv, i, lengths, cfg, impl, axis_info)
             page_pos.append(pp)
         h = rmsnorm(h, params["ln_f"])
-        logits = unembed(params["embed"], h, cfg)[:, 0]
+        logits = unembed(params["embed"], h, cfg, axis_info)[:, 0]
         return logits, {"kv": dict(kv, page_pos=torch.stack(page_pos)), "lengths": lengths + 1}
 
     def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla", axis_info=None):
@@ -409,26 +559,31 @@ def _decoder_lm(cfg: ModelConfig) -> Model:
 
 
 # ================================ pure SSM (mamba2) ================================
-def _ssm_prefill_layer(lp, h, states, i: int, cfg: ModelConfig):
+def _ssm_prefill_layer(lp, h, states, i: int, cfg: ModelConfig, axis_info=None):
     """Mamba2 layer ``i`` over the whole sequence; its final state and conv
     tail (the JAX package's ``_ssm_forward_with_state``) go into the stacked
     ``states``."""
-    h, st = B.ssm_block_apply(lp, h, cfg, return_state=True)
+    h, st = B.ssm_block_apply(lp, h, cfg, return_state=True, axis_info=axis_info)
     for name, t in states.items():
         t[i].copy_(st[name])
     return h
 
 
 def _ssm_lm(cfg: ModelConfig) -> Model:
-    def init(seed: int = 0, device="cuda", dtype: Optional[torch.dtype] = None):
+    def init(seed: int = 0, device="cuda", dtype: Optional[torch.dtype] = None,
+             axis_info: Optional[AxisInfo] = None):
         """As the decoder's init: blocks drawn layer by layer, straight into
         ``dtype`` when given (``A_log``, ``D``, ``dt_bias`` and the gated
-        norm's scale in f32)."""
+        norm's scale in f32); this rank's blocks with ``axis_info``."""
         gen = _generator(seed, device)
+        specs = _init_specs(axis_info, cfg)
         table = embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.pdtype())
-        blocks = _stack_init(gen, cfg.n_layers, lambda g: B.ssm_block_init(g, cfg), dtype)
+        blocks = _stack_init(gen, cfg.n_layers, lambda g: B.ssm_block_init(g, cfg), dtype,
+                             _stack_keep(specs and specs["blocks"], axis_info))
         ln_f = torch.ones((cfg.d_model,), dtype=dtype or cfg.pdtype(), device=gen.device)
-        return {"embed": {"table": table}, "blocks": blocks, "ln_f": ln_f}
+        params = {"embed": {"table": table}, "blocks": blocks, "ln_f": ln_f}
+        return params if specs is None else dict(params, embed=_blocks(params["embed"], specs["embed"], axis_info),
+                                                 ln_f=_blocks(ln_f, specs["ln_f"], axis_info))
 
     def init_cache(batch: int, seq_len: int, device="cuda", pad_pages_to: int = 1):
         dev = resolve_device(device)
@@ -440,29 +595,35 @@ def _ssm_lm(cfg: ModelConfig) -> Model:
                 axis_info: Optional[AxisInfo] = None):
         """Returns the last position's f32 logits and a cache of the f32
         SSM states ``{"ssm": (L, B, H, N, P), "conv": (L, B, Kc-1, C)}``.
-        No attention and nothing split over ranks: ``impl`` and
-        ``axis_info`` are taken for the common signature (the states stay
-        replicated)."""
-        h = _inputs_to_h(params, inputs, cfg)
+        No attention: ``impl`` is taken for the common signature. Under
+        ``axis_info`` this rank's rows of the logits, and the states of
+        every row (decode keeps them replicated)."""
+        specs = _held(params, cfg, axis_info)
+        n_rows = inputs.shape[0]
+        rows = _row_block(n_rows, axis_info)
+        h = _inputs_to_h(params, _take_rows(inputs, rows), cfg, axis_info)
         Bb, S = h.shape[:2]
         states = ssm_mod.init_ssm_state(cfg, Bb, cfg.n_layers, device=h.device)
         for i in range(cfg.n_layers):
-            h = _ssm_prefill_layer(_layer(params["blocks"], i), h, states, i, cfg)
-        h = rmsnorm(h, params["ln_f"])
-        logits = unembed(params["embed"], h[:, -1:], cfg)[:, 0]
-        return logits, {"ssm": states, "lengths": _lengths(Bb, S, h.device)}
+            lp = _prefill_layer(_layer(params["blocks"], i), specs and shd.layer_specs(specs["blocks"]), axis_info)
+            h = _ssm_prefill_layer(lp, h, states, i, cfg, axis_info)
+            del lp
+        h = rmsnorm(h, _whole_norm(params["ln_f"], axis_info, cfg))
+        logits = unembed(params["embed"], h[:, -1:], cfg, axis_info)[:, 0]
+        return logits, {"ssm": _rows_states(states, rows, axis_info), "lengths": _lengths(n_rows, S, h.device)}
 
     @torch.no_grad()
     def decode_step(params, cache, tokens: torch.Tensor, impl: Optional[str] = None,
                     axis_info: Optional[AxisInfo] = None):
         """tokens (B,). Updates the cache's SSM states in place (replicated
         under ``axis_info``: the same numbers on every rank)."""
-        h = embed(params["embed"], tokens[:, None], cfg)
+        params = _decode_params(params, _held(params, cfg, axis_info), axis_info)
+        h = embed(params["embed"], tokens[:, None], cfg, axis_info)
         states = cache["ssm"]
         for i in range(cfg.n_layers):
-            h = _ssm_decode(_layer(params["blocks"], i), h, states, i, cfg)
+            h = _ssm_decode(_layer(params["blocks"], i), h, states, i, cfg, axis_info)
         h = rmsnorm(h, params["ln_f"])
-        logits = unembed(params["embed"], h, cfg)[:, 0]
+        logits = unembed(params["embed"], h, cfg, axis_info)[:, 0]
         return logits, {"ssm": dict(states), "lengths": cache["lengths"] + 1}
 
     def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla", axis_info=None):
@@ -485,18 +646,25 @@ def _hybrid_lm(cfg: ModelConfig) -> Model:
     n_groups = cfg.n_layers // cfg.attn_every
     per_group = cfg.attn_every
 
-    def init(seed: int = 0, device="cuda", dtype: Optional[torch.dtype] = None):
+    def init(seed: int = 0, device="cuda", dtype: Optional[torch.dtype] = None,
+             axis_info: Optional[AxisInfo] = None):
         """The Mamba2 stack drawn layer by layer and viewed as
-        ``(n_groups, per_group, ...)``, then ONE shared attention block."""
+        ``(n_groups, per_group, ...)``, then ONE shared attention block;
+        this rank's blocks with ``axis_info``."""
         gen = _generator(seed, device)
+        specs = _init_specs(axis_info, cfg)
         table = embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.pdtype())
-        mamba = _stack_init(gen, cfg.n_layers, lambda g: B.ssm_block_init(g, cfg), dtype)
+        mamba = _stack_init(gen, cfg.n_layers, lambda g: B.ssm_block_init(g, cfg), dtype,
+                            _stack_keep(specs and specs["mamba"], axis_info, lead=2))
         mamba = _tree_map(lambda _, t: t.reshape(n_groups, per_group, *t.shape[1:]), mamba)
         shared = B.block_init(gen, cfg)
         if dtype:
             shared = _tree_map(lambda key, t: t.to(_serving_dtype(key, dtype)), shared)
         ln_f = torch.ones((cfg.d_model,), dtype=dtype or cfg.pdtype(), device=gen.device)
-        return {"embed": {"table": table}, "mamba": mamba, "shared_attn": shared, "ln_f": ln_f}
+        params = {"embed": {"table": table}, "mamba": mamba, "shared_attn": shared, "ln_f": ln_f}
+        if specs is None:
+            return params
+        return dict(params, **{k: _blocks(params[k], specs[k], axis_info) for k in ("embed", "shared_attn", "ln_f")})
 
     def init_cache(batch: int, seq_len: int, device="cuda", pad_pages_to: int = 1):
         dev = resolve_device(device)
@@ -513,21 +681,29 @@ def _hybrid_lm(cfg: ModelConfig) -> Model:
         the last position's f32 logits and ``{"ssm": (L, ...) states, "kv":
         n_groups paged layers, "lengths"}``; S a multiple of
         ``kv_page_tokens``; no headroom page under ``axis_info``."""
-        h = _inputs_to_h(params, inputs, cfg)
+        specs = _held(params, cfg, axis_info)
+        n_rows = inputs.shape[0]
+        rows = _row_block(n_rows, axis_info)
+        h = _inputs_to_h(params, _take_rows(inputs, rows), cfg, axis_info)
         Bb, S = h.shape[:2]
         states = ssm_mod.init_ssm_state(cfg, Bb, cfg.n_layers, device=h.device)
-        ks, vs = [], []
+        mamba_specs = specs and shd.layer_specs(specs["mamba"], lead=2)
+        shared = _prefill_layer(params["shared_attn"], specs and specs["shared_attn"], axis_info)
+        pages = []
         for g in range(n_groups):
             group = _layer(params["mamba"], g)
             for j in range(per_group):
-                h = _ssm_prefill_layer(_layer(group, j), h, states, g * per_group + j, cfg)
-            h, _, (k, v) = B.block_apply(params["shared_attn"], h, cfg, axis_info, return_kv=True, impl=impl)
-            ks.append(k)
-            vs.append(v)
-        h = rmsnorm(h, params["ln_f"])
-        logits = unembed(params["embed"], h[:, -1:], cfg)[:, 0]
-        cache = {"ssm": states, "kv": _paged_cache(cfg, ks, vs, _pages_extra(axis_info)),
-                 "lengths": _lengths(Bb, S, h.device)}
+                lp = _prefill_layer(_layer(group, j), mamba_specs, axis_info)
+                h = _ssm_prefill_layer(lp, h, states, g * per_group + j, cfg, axis_info)
+                del lp
+            h, _, (k, v) = B.block_apply(shared, h, cfg, axis_info, return_kv=True, impl=impl,
+                                         local_batch=rows is not None)
+            pages.append(_layer_pages(cfg, k, v, _pages_extra(axis_info), axis_info, rows, n_rows))
+        h = rmsnorm(h, _whole_norm(params["ln_f"], axis_info, cfg))
+        logits = unembed(params["embed"], h[:, -1:], cfg, axis_info)[:, 0]
+        cache = {"ssm": _rows_states(states, rows, axis_info),
+                 "kv": _paged_cache(pages),
+                 "lengths": _lengths(n_rows, S, h.device)}
         return logits, cache
 
     @torch.no_grad()
@@ -536,17 +712,18 @@ def _hybrid_lm(cfg: ModelConfig) -> Model:
         """tokens (B,). SSM states, pools (and int8 scales) updated in
         place; ``page_pos`` re-stacked. Under ``axis_info`` the pools are
         striped and the SSM states replicated."""
-        h = embed(params["embed"], tokens[:, None], cfg)
+        params = _decode_params(params, _held(params, cfg, axis_info), axis_info)
+        h = embed(params["embed"], tokens[:, None], cfg, axis_info)
         lengths, kv, states = cache["lengths"], cache["kv"], cache["ssm"]
         page_pos = []
         for g in range(n_groups):
             group = _layer(params["mamba"], g)
             for j in range(per_group):
-                h = _ssm_decode(_layer(group, j), h, states, g * per_group + j, cfg)
+                h = _ssm_decode(_layer(group, j), h, states, g * per_group + j, cfg, axis_info)
             h, pp = _attn_decode(params["shared_attn"], h, kv, g, lengths, cfg, impl, axis_info)
             page_pos.append(pp)
         h = rmsnorm(h, params["ln_f"])
-        logits = unembed(params["embed"], h, cfg)[:, 0]
+        logits = unembed(params["embed"], h, cfg, axis_info)[:, 0]
         return logits, {"ssm": dict(states), "kv": dict(kv, page_pos=torch.stack(page_pos)),
                         "lengths": lengths + 1}
 
@@ -574,17 +751,25 @@ def _hybrid_lm(cfg: ModelConfig) -> Model:
 def _encdec_lm(cfg: ModelConfig) -> Model:
     n_enc, n_dec = cfg.n_enc_layers, cfg.n_dec_layers
 
-    def init(seed: int = 0, device="cuda", dtype: Optional[torch.dtype] = None):
+    def init(seed: int = 0, device="cuda", dtype: Optional[torch.dtype] = None,
+             axis_info: Optional[AxisInfo] = None):
         """The embedding, then the encoder's transformer blocks and the
         decoder blocks (self, cross, MLP), each stack drawn layer by layer
-        straight into ``dtype`` when given."""
+        straight into ``dtype`` when given; this rank's blocks with
+        ``axis_info``."""
         gen = _generator(seed, device)
+        specs = _init_specs(axis_info, cfg)
         table = embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.pdtype())
-        encoder = _stack_init(gen, n_enc, lambda g: B.block_init(g, cfg), dtype)
-        decoder = _stack_init(gen, n_dec, lambda g: B.dec_block_init(g, cfg), dtype)
+        encoder = _stack_init(gen, n_enc, lambda g: B.block_init(g, cfg), dtype,
+                              _stack_keep(specs and specs["encoder"], axis_info))
+        decoder = _stack_init(gen, n_dec, lambda g: B.dec_block_init(g, cfg), dtype,
+                              _stack_keep(specs and specs["decoder"], axis_info))
         norm = lambda: torch.ones((cfg.d_model,), dtype=dtype or cfg.pdtype(), device=gen.device)  # noqa: E731
-        return {"embed": {"table": table}, "encoder": encoder, "decoder": decoder,
-                "ln_enc": norm(), "ln_dec": norm()}
+        params = {"embed": {"table": table}, "encoder": encoder, "decoder": decoder,
+                  "ln_enc": norm(), "ln_dec": norm()}
+        if specs is None:
+            return params
+        return dict(params, **{k: _blocks(params[k], specs[k], axis_info) for k in ("embed", "ln_enc", "ln_dec")})
 
     def init_cache(batch: int, seq_len: int, device="cuda", pad_pages_to: int = 1):
         dev = resolve_device(device)
@@ -605,37 +790,49 @@ def _encdec_lm(cfg: ModelConfig) -> Model:
         position's. Without, the self cache is empty (``lengths`` 0) and the
         logits are zeros. The cache is ``{"self_kv", "cross_kv", "lengths",
         "enc_len"}``; under ``axis_info`` the prefilled pools have no
-        headroom page."""
+        headroom page, and the logits and pools are this rank's (module
+        docstring)."""
         extra = _pages_extra(axis_info)
+        specs = _held(params, cfg, axis_info)
+        n_rows = inputs["enc_embeds"].shape[0]
+        rows = _row_block(n_rows, axis_info)
+        inputs = _take_rows(inputs, rows)
         h = inputs["enc_embeds"].to(cfg.cdtype())
         for i in range(n_enc):
-            h, _ = B.block_apply(_layer(params["encoder"], i), h, cfg, axis_info, causal=False, impl=impl)
-        enc_out = rmsnorm(h, params["ln_enc"])
+            lp = _prefill_layer(_layer(params["encoder"], i), specs and shd.layer_specs(specs["encoder"]), axis_info)
+            h, _ = B.block_apply(lp, h, cfg, axis_info, causal=False, impl=impl, local_batch=rows is not None)
+            del lp
+        enc_out = rmsnorm(h, _whole_norm(params["ln_enc"], axis_info, cfg))
         Bb, S_enc = enc_out.shape[:2]
         dev = enc_out.device
-        cross = params["decoder"]["cross"]
-        ks = [attn.project(enc_out, cross["wk"][i], cfg.cdtype()) for i in range(n_dec)]
-        vs = [attn.project(enc_out, cross["wv"][i], cfg.cdtype()) for i in range(n_dec)]
-        cross_kv = _paged_cache(cfg, ks, vs, extra)
-        del ks, vs
-
         tokens = inputs.get("tokens")
+        if tokens is not None:
+            h = embed(params["embed"], tokens, cfg, axis_info)
+        cross, pages = [], []
+        for i in range(n_dec):
+            lp = _prefill_layer(_layer(params["decoder"], i), specs and shd.layer_specs(specs["decoder"]), axis_info)
+            k, v = (attn.project(enc_out, lp["cross"][n], cfg.cdtype()) for n in ("wk", "wv"))
+            if axis_info is not None and k.shape[2] != cfg.n_kv_heads:  # every kv head, for the cache
+                k, v = (t.movedim(0, 2) for t in collectives.regather_many(
+                    [k.movedim(2, 0), v.movedim(2, 0)], axis_info.model_axis, axis_info.mesh))
+            cross.append(_layer_pages(cfg, k, v, extra, axis_info, rows, n_rows))
+            if tokens is not None:
+                h, (k, v) = B.dec_block_apply(lp, h, enc_out, cfg, impl=impl, axis_info=axis_info)
+                pages.append(_layer_pages(cfg, k, v, extra, axis_info, rows, n_rows))
+            del lp
+        cross_kv = _paged_cache(cross)
         if tokens is None:
-            self_kv, lengths = attn.init_decode_cache(cfg, Bb, S_enc, n_dec, device=dev)
+            self_kv, lengths = attn.init_decode_cache(cfg, n_rows, S_enc, n_dec, device=dev)
+            if axis_info is not None:
+                self_kv = shd.shard_cache(self_kv, cfg, axis_info)
             logits = torch.zeros((Bb, cfg.padded_vocab), dtype=torch.float32, device=dev)
         else:
-            h = embed(params["embed"], tokens, cfg)
-            ks, vs = [], []
-            for i in range(n_dec):
-                h, (k, v) = B.dec_block_apply(_layer(params["decoder"], i), h, enc_out, cfg, impl=impl)
-                ks.append(k)
-                vs.append(v)
-            self_kv = _paged_cache(cfg, ks, vs, extra)
-            h = rmsnorm(h, params["ln_dec"])
-            logits = unembed(params["embed"], h[:, -1:], cfg)[:, 0]
-            lengths = _lengths(Bb, tokens.shape[1], dev)
+            self_kv = _paged_cache(pages)
+            h = rmsnorm(h, _whole_norm(params["ln_dec"], axis_info, cfg))
+            logits = unembed(params["embed"], h[:, -1:], cfg, axis_info)[:, 0]
+            lengths = _lengths(n_rows, tokens.shape[1], dev)
         return logits, {"self_kv": self_kv, "cross_kv": cross_kv, "lengths": lengths,
-                        "enc_len": _lengths(Bb, S_enc, dev)}
+                        "enc_len": _lengths(n_rows, S_enc, dev)}
 
     @torch.no_grad()
     def decode_step(params, cache, tokens: torch.Tensor, impl: Optional[str] = None,
@@ -643,7 +840,8 @@ def _encdec_lm(cfg: ModelConfig) -> Model:
         """tokens (B,). Appends each row's token to the self pools in place;
         the cross pools are only read. Only the self cache's ``page_pos`` is
         re-stacked. Under ``axis_info`` both pools are striped."""
-        h = embed(params["embed"], tokens[:, None], cfg)
+        params = _decode_params(params, _held(params, cfg, axis_info), axis_info)
+        h = embed(params["embed"], tokens[:, None], cfg, axis_info)
         lengths, self_kv, cross_kv = cache["lengths"], cache["self_kv"], cache["cross_kv"]
         page_pos = []
         for i in range(n_dec):
@@ -652,7 +850,7 @@ def _encdec_lm(cfg: ModelConfig) -> Model:
                 {n: t[i] for n, t in cross_kv.items()}, lengths, cache["enc_len"], cfg, axis_info, impl=impl)
             page_pos.append(new["page_pos"])
         h = rmsnorm(h, params["ln_dec"])
-        logits = unembed(params["embed"], h, cfg)[:, 0]
+        logits = unembed(params["embed"], h, cfg, axis_info)[:, 0]
         return logits, dict(cache, self_kv=dict(self_kv, page_pos=torch.stack(page_pos)), lengths=lengths + 1)
 
     def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla", axis_info=None):

@@ -12,6 +12,19 @@ operands are upcast to f32 here: a product of two bf16 numbers is exact in
 f32, so only the order of the sums differs. The causal conv is the same loop
 of shifted multiply-adds (a depthwise ``conv1d`` would sum in another order
 and, in f32 on a card, run in TF32 by default).
+
+Under an ``axis_info`` the projections may be this rank's blocks (the
+serving layout: ``in_proj`` ``(embed -> data, ssm_proj -> model)``,
+``out_proj`` ``(ssm_inner -> model, embed -> data)``). ``in_proj``'s
+columns over the model axis cut across the z / x / B / C / dt pieces, so its
+output is summed over ``data`` and regathered over ``model`` (one
+all-reduce), and the conv and the scan then run on every head, replicated
+over the model axis: the JAX package's GSPMD layout would split the scan
+over heads only after a reshard of those pieces, and the scan is a small
+share of a layer's work next to the projections. ``out_proj`` takes this
+rank's block of the gated output: summed over ``model``, regathered over
+``data``. The conv taps and bias and the gated norm's scale are used whole
+(the caller regathers them).
 """
 
 from __future__ import annotations
@@ -23,7 +36,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import block_of, sharded_products, split
 from repro_torch.models.modules import dense_init
+from repro_torch.parallel.axisinfo import AxisInfo
+from repro_torch.parallel.sharding import FSDP_AXIS
 
 SSMState = Dict[str, torch.Tensor]  # {"ssm": (B, H, N, P), "conv": (B, Kc-1, conv_dim)}
 
@@ -189,14 +205,38 @@ def _heads(xBC: torch.Tensor, cfg: ModelConfig):
     return xs, Bm, Cm
 
 
-def ssm_forward(params, x: torch.Tensor, cfg: ModelConfig, *, return_state: bool = False):
+def _in_proj(params, x: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisInfo]) -> torch.Tensor:
+    """``x @ in_proj``, whole (module docstring)."""
+    w = params["in_proj"].to(cfg.cdtype())
+    if axis_info is None:
+        return x @ w
+    mesh = axis_info.mesh
+    da = split(w.shape[0], cfg.d_model, FSDP_AXIS)
+    pa = split(w.shape[1], 2 * cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state + cfg.ssm_heads,
+               axis_info.model_axis)
+    return sharded_products(block_of(x, -1, da, mesh), [w], mesh, sum_axes=da, gather_axes=pa)[0]
+
+
+def _out_proj(params, y: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisInfo]) -> torch.Tensor:
+    """``y @ out_proj``, whole (module docstring)."""
+    w = params["out_proj"].to(cfg.cdtype())
+    if axis_info is None:
+        return y @ w
+    mesh = axis_info.mesh
+    ia = split(w.shape[0], cfg.d_inner, axis_info.model_axis)
+    da = split(w.shape[1], cfg.d_model, FSDP_AXIS)
+    return sharded_products(block_of(y, -1, ia, mesh), [w], mesh, sum_axes=ia, gather_axes=da)[0]
+
+
+def ssm_forward(params, x: torch.Tensor, cfg: ModelConfig, *, return_state: bool = False,
+                axis_info: Optional[AxisInfo] = None):
     """Full-sequence Mamba2 mixer (prefill). x (B, S, d) in the compute
     dtype. With ``return_state`` also returns the state handed to decode:
     the final SSM state and the conv tail (the last Kc-1 pre-conv inputs),
     both f32 (``lm._ssm_forward_with_state`` of the JAX package)."""
     ct = cfg.cdtype()
     Bb, S = x.shape[:2]
-    zxbcdt = x @ params["in_proj"].to(ct)
+    zxbcdt = _in_proj(params, x, cfg, axis_info)
     z, xBC_pre, dt = _split_proj(zxbcdt, cfg)
     xBC = F.silu(_causal_conv(xBC_pre, params["conv_w"].to(ct), params["conv_b"].to(ct)))
     xs, Bm, Cm = _heads(xBC, cfg)
@@ -206,7 +246,7 @@ def ssm_forward(params, x: torch.Tensor, cfg: ModelConfig, *, return_state: bool
     y, final = out if return_state else (out, None)
     y = y + params["D"][None, None, :, None] * xs.float()
     y = _gated_norm(y.reshape(Bb, S, cfg.d_inner).to(ct), z, params["norm"])
-    y = y @ params["out_proj"].to(ct)
+    y = _out_proj(params, y, cfg, axis_info)
     if not return_state:
         return y
     conv_tail = xBC_pre[:, -(cfg.ssm_conv - 1):, :]
@@ -228,10 +268,11 @@ def ssm_decode(
     x: torch.Tensor,  # (B, 1, d)
     state: SSMState,  # one layer's {"ssm": (B, H, N, P), "conv": (B, Kc-1, C)}
     cfg: ModelConfig,
+    axis_info: Optional[AxisInfo] = None,
 ) -> Tuple[torch.Tensor, SSMState]:
     """One-token Mamba2 step: returns (out (B, 1, d), the layer's new state)."""
     ct = cfg.cdtype()
-    zxbcdt = (x @ params["in_proj"].to(ct))[:, 0]
+    zxbcdt = _in_proj(params, x, cfg, axis_info)[:, 0]
     z, xBC, dt = _split_proj(zxbcdt, cfg)
 
     conv_hist = torch.cat([state["conv"].to(ct), xBC[:, None, :]], dim=1)  # (B, Kc, C)
@@ -245,5 +286,5 @@ def ssm_decode(
     y, new_ssm = ssd_decode_step(state["ssm"].float(), xs.float(), dtv, A, Bm.float(), Cm.float())
     y = y + params["D"][None, :, None] * xs.float()
     y = _gated_norm(y.reshape(-1, cfg.d_inner).to(ct), z, params["norm"])
-    out = (y @ params["out_proj"].to(ct))[:, None]
+    out = _out_proj(params, y, cfg, axis_info)[:, None]
     return out, {"ssm": new_ssm.to(state["ssm"].dtype), "conv": new_conv.to(state["conv"].dtype)}

@@ -10,8 +10,9 @@ on the group of those axes, on a copy of the tensor that stays on its
 device. Only ``all_reduce`` is used: with one card the ranks share it under
 gloo, which carries ``all_reduce`` and ``broadcast`` for CUDA tensors and
 little else, so a gather is written as a SUM over a zero-filled full buffer
-(:func:`regather`). Over axes of total size 1 every function is the
-identity and nothing is sent.
+(:func:`regather`; :func:`regather_many` packs several blocks into one
+call). Over axes of total size 1 every function is the identity and
+nothing is sent.
 
 ``stats`` counts the all-reduces issued and their bytes (plain integers, as
 the kernels count their launches).
@@ -68,11 +69,13 @@ def axis_index(names: AxisNames, mesh: Mesh) -> int:
     return mesh.axes_index(_axes(names))
 
 
-def _all_reduce(x: torch.Tensor, names: AxisNames, mesh: Mesh, op) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, names: AxisNames, mesh: Mesh, op, fresh: bool = False) -> torch.Tensor:
+    """The reduction over ``names`` of ``x``, on a copy unless ``fresh``
+    (``x`` is a contiguous buffer the caller hands over)."""
     axes = _axes(names)
     if mesh.axes_size(axes) == 1:
         return x
-    y = x.contiguous().clone()
+    y = x if fresh else x.contiguous().clone()
     dist.all_reduce(y, op=op, group=mesh.group(axes))
     stats["calls"] += 1
     stats["bytes"] += y.numel() * y.element_size()
@@ -111,7 +114,33 @@ def regather(block: torch.Tensor, names: AxisNames, mesh: Mesh, sum_names: AxisN
     full = torch.zeros((n * block.shape[0], *block.shape[1:]), dtype=block.dtype, device=block.device)
     i = axis_index(names, mesh)
     full[i * block.shape[0]:(i + 1) * block.shape[0]] = block
-    return psum(full, names + sum_names, mesh)
+    return _all_reduce(full, names + sum_names, mesh, dist.ReduceOp.SUM, fresh=True)
+
+
+def regather_many(blocks: Sequence[torch.Tensor], names: AxisNames, mesh: Mesh,
+                  sum_names: AxisNames = ()) -> List[torch.Tensor]:
+    """:func:`regather` of several blocks (one dtype) in ONE all-reduce:
+    each rank writes its blocks, flattened one after another, into its row
+    of a zero-filled ``(n, total)`` buffer. Bit for bit the separate
+    regathers (the other ranks add exact zeros)."""
+    names, sum_names = _axes(names), _axes(sum_names)
+    n = axis_size(names, mesh)
+    if n * axis_size(sum_names, mesh) == 1:
+        return list(blocks)
+    sizes = [b.numel() for b in blocks]
+    full = torch.zeros((n, sum(sizes)), dtype=blocks[0].dtype, device=blocks[0].device)
+    row = full[axis_index(names, mesh) if names else 0]
+    k = 0
+    for b, size in zip(blocks, sizes):
+        row[k:k + size] = b.reshape(-1)
+        k += size
+    full = _all_reduce(full, names + sum_names, mesh, dist.ReduceOp.SUM, fresh=True)
+    out, k = [], 0
+    for b, size in zip(blocks, sizes):
+        out.append(full[:, k:k + size].reshape(n, *b.shape).reshape(n * b.shape[0], *b.shape[1:])
+                   if names else full[0, k:k + size].view(b.shape))
+        k += size
+    return out
 
 
 # ------------------------------ training: collectives with their backward ------------------------------

@@ -9,18 +9,23 @@ the JAX package does: ``logical_rules``, ``spec_for``, ``param_shardings``,
 (tuples, :class:`P`, where it gives ``NamedSharding``\\ s of
 ``PartitionSpec``\\ s).
 
-What the port does with them differs, by design. It runs one process per
-rank and keeps parameters and activations replicated, where GSPMD keeps
-the JAX package's values global outside its ``shard_map`` bodies. The state
-it shards is what those bodies take split:
+The port runs one process per rank, and lays the parameters out in one of
+two layouts (:func:`param_specs`):
 
-* the expert weights over the model axis (:func:`shard_params`: the model
-  axis's entries of ``param_shardings``; the FSDP ``'data'`` entries are a
-  GSPMD layout that ``shard_map`` gathers before the body runs);
-* the KV page pools and int8 scales over every axis (:func:`shard_cache`:
-  ``cache_shardings``' entries for them). The SSM states stay replicated,
-  where ``cache_shardings`` shards them over the batch axes: each row's
-  state is updated by its own row alone, so the numbers are the same.
+* **serving** (``prefill``/``decode_step``): every leaf is this rank's
+  block under ``param_shardings``, the JAX package's own layout (heads,
+  ffn, vocab and the SSM projections over ``model``, ``embed`` over
+  ``data``, the experts over ``model``), with its fall-back to replication
+  where a dim does not divide. The model code reads which dims a leaf
+  holds whole and which as a block from its shape (:func:`held_specs`);
+* **train** (``train_loss`` and the train step): the expert weights over
+  the model axis, every other leaf replicated (:func:`local_param_specs`).
+
+The KV page pools and int8 scales are striped over every axis
+(:func:`shard_cache`: ``cache_shardings``' entries for them). The SSM
+states stay replicated, where ``cache_shardings`` shards them over the
+batch axes: each row's state is updated by its own row alone, so the
+numbers are the same.
 
 :func:`shard_leaf` takes this rank's block of a value, which is what
 ``jax.device_put`` onto a ``NamedSharding`` does.
@@ -34,6 +39,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.parallel.axisinfo import AxisInfo, Mesh
 
 POOL_LEAVES = ("pool_k", "pool_v", "scale_k", "scale_v")
+FSDP_AXIS = "data"  # the mesh axis of the ``embed`` dims (FSDP within a pod)
+# leaves the serving path uses whole: the norm scales, the conv taps and bias,
+# the gated norm's scale (a few KB a layer); regathered before use
+WHOLE_AT_USE = ("ln1", "ln2", "ln3", "ln", "ln_f", "ln_enc", "ln_dec", "conv_w", "conv_b", "norm")
 
 
 class P(tuple):
@@ -55,7 +64,7 @@ def logical_rules(cfg: ModelConfig, axis_info: AxisInfo) -> Dict[str, Any]:
     m = axis_info.model_axis
     return {
         "vocab": m,
-        "embed": "data",  # FSDP within pod
+        "embed": FSDP_AXIS,  # FSDP within pod
         "embed_table": None,  # vocab-sharded only
         "q_heads": m,
         "kv_heads": m,
@@ -197,6 +206,93 @@ def gather_params(params, cfg: ModelConfig, axis_info: AxisInfo):
     return _map(lambda _, x, s: gather_leaf(x, s, axis_info) if len(s) else x, params, specs)
 
 
+def serving_specs(cfg: ModelConfig, axis_info: AxisInfo):
+    """The serving layout: ``param_shardings`` of the full param tree."""
+    from repro_torch.convert import param_shapes
+    from repro_torch.models.lm import param_axes
+
+    return param_shardings(param_shapes(cfg), param_axes(cfg), cfg, axis_info)
+
+
+def param_specs(cfg: ModelConfig, axis_info: AxisInfo, layout: str = "train"):
+    """The spec tree of a layout: ``"train"`` (:func:`local_param_specs`)
+    or ``"serving"`` (:func:`serving_specs`)."""
+    from repro_torch.convert import param_shapes
+
+    if layout == "serving":
+        return serving_specs(cfg, axis_info)
+    if layout == "train":
+        return local_param_specs(param_shapes(cfg), cfg, axis_info)
+    raise ValueError(f"unknown layout {layout!r}: 'train' or 'serving'")
+
+
+def held_specs(params, cfg: ModelConfig, axis_info: AxisInfo):
+    """The spec each leaf of ``params`` is held in, read from its shape
+    against the full one: ``param_shardings``' entry on each dim that is
+    this rank's block, ``None`` on each dim held whole. So both layouts
+    (and any mix of them) are read; a dim of any other size raises, naming
+    the leaf."""
+    from repro_torch.convert import param_shapes
+
+    mesh = axis_info.mesh
+
+    def one(path, x, full, spec):
+        entries = []
+        for dim, n in enumerate(full):
+            e = spec[dim] if dim < len(spec) else None
+            got = x.shape[dim]
+            if got == n:
+                entries.append(None)
+            elif e is not None and got * mesh.axes_size((e,) if isinstance(e, str) else e) == n:
+                entries.append(e)
+            else:
+                raise ValueError(f"params{list(path)}: shape {tuple(x.shape)} is neither the full {tuple(full)} "
+                                 f"nor this rank's block under {spec}")
+        return P(*_trim(entries))
+
+    return _map(one, params, param_shapes(cfg), serving_specs(cfg, axis_info))
+
+
+def layer_specs(specs, lead: int = 1):
+    """The specs of one layer of a stacked tree: ``lead`` leading entries dropped."""
+    return _map(lambda _, s: P(*s[lead:]), specs)
+
+
+def gather_over(tree, specs, axis_info: AxisInfo, axes, keys=None):
+    """``(tree, specs)`` with each leaf (or each leaf whose key is in
+    ``keys``) regathered over every mesh axis of ``axes`` that its spec
+    names, and those entries cleared: one all-reduce per axis and dtype
+    (:func:`repro_torch.parallel.collectives.regather_many`)."""
+    from repro_torch.parallel import collectives
+
+    leaves, held = {}, {}
+
+    def collect(path, x, s):
+        leaves[path], held[path] = x, list(s)
+
+    _map(collect, tree, specs)
+    for axis in axes:
+        jobs: Dict[Any, list] = {}
+        for path, s in held.items():
+            if (keys is None or path[-1] in keys) and axis in s:
+                jobs.setdefault(leaves[path].dtype, []).append((path, s.index(axis)))
+        for job in jobs.values():
+            blocks = [leaves[p].movedim(d, 0) for p, d in job]
+            for (p, d), whole in zip(job, collectives.regather_many(blocks, axis, axis_info.mesh)):
+                leaves[p] = whole.movedim(0, d)
+                held[p][d] = None
+    return (_map(lambda path, _: leaves[path], tree),
+            _map(lambda path, _: P(*_trim(held[path])), tree))
+
+
+def _trim(entries) -> list:
+    """The entries without the ``None`` entries at their end."""
+    entries = list(entries)
+    while entries and entries[-1] is None:
+        entries.pop()
+    return entries
+
+
 def local_param_specs(params, cfg: ModelConfig, axis_info: AxisInfo):
     """The specs the port applies to a params tree: the model axis's entries
     of ``param_shardings`` on the expert weights (the leaves with an
@@ -219,12 +315,16 @@ def local_param_specs(params, cfg: ModelConfig, axis_info: AxisInfo):
     return _map(one, specs, axes)
 
 
-def shard_params(params, cfg: ModelConfig, axis_info: AxisInfo, copy: bool = False):
-    """This rank's params: every leaf replicated but the expert weights,
-    which keep this rank's experts (or ffn columns); see
-    :func:`local_param_specs`. Works on tensors and on numpy arrays. The
+def shard_params(params, cfg: ModelConfig, axis_info: AxisInfo, copy: bool = False, layout: str = "train"):
+    """This rank's params in ``layout`` (:func:`param_specs`): for
+    ``"train"`` every leaf replicated but the expert weights, which keep
+    this rank's experts (or ffn columns); for ``"serving"`` every leaf's
+    ``param_shardings`` block. Works on tensors and on numpy arrays. The
     blocks are views unless ``copy`` (a view keeps the whole leaf alive)."""
-    specs = local_param_specs(params, cfg, axis_info)
+    if layout == "train":  # from the shapes given: a caller may hand in one layer's subtree
+        specs = local_param_specs(params, cfg, axis_info)
+    else:
+        specs = param_specs(cfg, axis_info, layout)
 
     def one(_, x, s):
         if not len(s):

@@ -11,9 +11,21 @@ JAX loss and gradient's (AdamW has no matmul; the SSD backward differs in a
 few small matmuls). Also held: the input specs and
 ``concrete_batch`` draws, the counter on hand-counted calls, a sharded cell
 on a fake 2 x 2 group against the unsharded one, and one full-size cell.
+The serving layout on a fake 2 x 2 group (B=4, S=64): a prefill's and a
+decode step's argument bytes are JAX's per device (its jitted calls with
+``in_shardings`` from ``param_shardings``, compiled in a subprocess with 4
+forced host devices), a decode step's but for the differences the port
+keeps on purpose, stated exactly; and a prefill repeats no other rank's
+matmuls (its ``useful_flops_ratio`` at least 0.9).
 """
 
+import dataclasses
+import os
+import pickle
+import subprocess
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,6 +48,7 @@ from repro_torch.parallel import collectives  # noqa: E402
 
 FAMILIES = ["llama3_2-1b", "mixtral-8x7b", "mamba2-370m", "zamba2-2.7b", "seamless-m4t-medium"]
 B, S = 2, 64
+TESTS = Path(__file__).resolve().parent
 
 
 def jax_cell(arch, kind, keep_unused=False):
@@ -213,10 +226,134 @@ def test_full_size_decode_cell():
         assert rec[key] > 0
     cfg = get_config("llama3_2-1b")
     assert rec["model_flops"] == 2 * cfg.param_count(active_only=True) * 128
-    # a split-K combine a layer: one pmax of (B, H) and one psum of (B, H, hd + 1), f32
-    assert rec["collectives"]["all-reduce"] == cfg.n_layers * 128 * cfg.n_heads * (1 + cfg.head_dim + 1) * 4
+    # the serving layout moves activations only. A layer: q summed over data and
+    # regathered over model (bf16); k and v summed over data (their 8 heads do not
+    # divide the 16-way model axis, so they stay whole); the split-K combine's pmax
+    # of (B, H) and psum of (B, H, hd + 1) (f32); the attention and MLP outputs
+    # (B, d) and the MLP's gate and hidden columns (B, f/16) (bf16). A step: the
+    # embedding rows and the logits (f32) and the norm scales, regathered at use (f32)
+    B, H, K, hd, d, f, L = 128, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model, cfg.d_ff, cfg.n_layers
+    layer = 2 * B * (H + 2 * K) * hd + 4 * B * H * (1 + hd + 1) + 2 * 2 * B * d + 2 * 2 * B * f // 16
+    step = 4 * B * d + 4 * B * cfg.padded_vocab + 4 * (2 * L + 1) * d
+    assert rec["collectives"]["all-reduce"] == L * layer + step
+    assert rec["collective_count"] == 7 * L + 3
 
 
 def test_a_skipped_cell_is_recorded():
     rec = dryrun.run_cell("llama3_2-1b", "long_500k", False)
     assert rec["ok"] and "skipped" in rec
+
+
+# ------------------------------ the serving layout on a fake 2 x 2 group ------------------------------
+B4 = 4  # rows of the serving cells: two a data shard
+
+
+def _jax_serving_args(out_path: str) -> None:
+    """Per-device argument bytes of the JAX package's jitted prefill and
+    decode step of each family (smoke, B=4, S=64) on a (data 2, model 2)
+    Auto-axis mesh of 4 forced host devices: ``param_shardings``,
+    ``batch_shardings`` and ``cache_shardings``, as its dry run lays them."""
+    from jax.sharding import AxisType
+
+    from repro.parallel import sharding as jshd
+    from repro.parallel.axisinfo import AxisInfo
+
+    mesh = jax.make_mesh((2, 2), ("data", "model"), axis_types=(AxisType.Auto, AxisType.Auto))
+    ai = AxisInfo(mesh, batch_axes=("data",), model_axis="model")
+    out = {}
+    for arch in FAMILIES:
+        cfg = jax_get_config(arch).smoke()
+        model = jax_build_model(cfg)
+        params, axes = jdryrun.abstract_init(model, jax.random.PRNGKey(0))
+        p_shard = jshd.param_shardings(params, axes, cfg, ai)
+        batch = jspecs.prefill_batch_spec(cfg, B4, S)
+        cache = jax.eval_shape(lambda m=model: m.init_cache(B4, S, pad_pages_to=ai.n_page_shards))
+        tok = jspecs.decode_tokens_spec(cfg, B4)
+        with mesh:
+            prefill = jax.jit(lambda p, b, m=model: m.prefill(p, b, ai),
+                              in_shardings=(p_shard, jshd.batch_shardings(batch, cfg, ai)))
+            decode = jax.jit(lambda p, c, t, m=model: m.decode_step(p, c, t, ai),
+                             in_shardings=(p_shard, jshd.cache_shardings(cache, cfg, ai),
+                                           jshd.batch_shardings(tok, cfg, ai)))
+            out[arch] = {"prefill": prefill.lower(params, batch).compile().memory_analysis().argument_size_in_bytes,
+                         "decode": decode.lower(params, cache, tok).compile().memory_analysis().argument_size_in_bytes}
+    with open(out_path, "wb") as fh:
+        pickle.dump(out, fh)
+
+
+@pytest.fixture(scope="module")
+def serving_cells(tmp_path_factory):
+    out = tmp_path_factory.mktemp("serving") / "jax.pkl"
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "XLA_FLAGS": "--xla_force_host_platform_device_count=4",
+           "PYTHONPATH": os.pathsep.join([str(TESTS.parent / "src"), str(TESTS), os.environ.get("PYTHONPATH", "")])}
+    proc = subprocess.Popen([sys.executable, "-c", f"import test_torch_dryrun as t; t._jax_serving_args({str(out)!r})"],
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        recs = {}
+        with dryrun.fake_world(4):
+            ai = make_axis_info(make_mesh((2, 2), ("data", "model")))
+            for arch in FAMILIES + ["chameleon-34b"]:
+                cfg = get_config(arch).smoke()
+                if cfg.is_moe:  # capacity for exactly the routed tokens: no slot left empty
+                    cfg = dataclasses.replace(cfg, capacity_factor=1.0)
+                for kind in ("prefill", "decode"):
+                    recs[arch, kind] = dryrun.plan(cfg, kind, B4, S, ai)
+        log, _ = proc.communicate(timeout=120)
+    finally:
+        proc.kill()
+    assert proc.returncode == 0, log[-4000:]
+    with open(out, "rb") as fh:
+        return recs, pickle.load(fh)
+
+
+def _block_numels(cfg):
+    """Elements of each leaf's block under the serving layout on (2, 2)."""
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.axisinfo import AxisInfo, Mesh
+
+    ai = AxisInfo(Mesh((2, 2), ("data", "model")), ("data",))
+    return shd._map(lambda _, shape, spec: int(np.prod(shape)) // 2 ** sum(e is not None for e in spec),
+                    param_shapes(cfg), shd.serving_specs(cfg, ai))
+
+
+def _state_bytes(cfg) -> int:
+    """The SSM states of a decode cache of B4 rows (f32)."""
+    if cfg.family not in ("ssm", "hybrid"):
+        return 0
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    return 4 * cfg.n_layers * B4 * (cfg.ssm_heads * cfg.ssm_state * cfg.ssm_headdim + (cfg.ssm_conv - 1) * conv_dim)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_serving_argument_bytes_a_rank_equal_jax(arch, kind, serving_cells):
+    """A prefill holds JAX's arguments to the byte (its param blocks and its
+    rows of the batch: llama's are 214,656 bytes). A decode step holds
+    JAX's plus what the port keeps replicated over the two batch shards on
+    purpose (the tokens and the SSM states) and less the arguments
+    ``jax.jit`` drops from an encoder-decoder's decode, which never reads
+    them (the encoder, its norm and the cross K/V projections: their
+    blocks, a quarter of each, but the norm's half)."""
+    recs, jax_args = serving_cells
+    cfg = get_config(arch).smoke()
+    got = recs[arch, kind]["bytes_per_device"]["arguments"]
+    if kind == "prefill":
+        assert got == jax_args[arch]["prefill"]
+        if arch == "llama3_2-1b":
+            assert got == 214_656
+        return
+    replicated = (B4 * 4 + _state_bytes(cfg)) // 2
+    unread = 0
+    if cfg.family in ("encdec", "audio"):
+        blocks = _block_numels(cfg)
+        cross = blocks["decoder"]["cross"]
+        unread = 4 * (_numel(blocks["encoder"]) + blocks["ln_enc"] + cross["wk"] + cross["wv"])
+    assert got - replicated - unread == jax_args[arch]["decode"]
+
+
+@pytest.mark.parametrize("arch", ["llama3_2-1b", "mixtral-8x7b", "chameleon-34b"])
+def test_sharded_prefill_repeats_no_matmul(arch, serving_cells):
+    """Dense, MoE (capacity for exactly the routed tokens) and vlm prefill:
+    the ranks' matmul FLOPs add up to no more than the model's over 0.9."""
+    recs, _ = serving_cells
+    assert recs[arch, "prefill"]["roofline"]["useful_flops_ratio"] >= 0.9

@@ -22,8 +22,10 @@ Tolerances: f32 pools 1e-4, as the single-device port tests (the same
 products summed in another order; the split-K combine adds f32 rounding
 of the same size); int8 pools 2e-3 against JAX on its Pallas kernels in
 interpret mode (the pools are read dequantized to bf16, as in
-``tests/test_torch_model.py``). ``prefill`` with an ``axis_info`` (the MoE
-split over the ranks, no headroom page) is held to JAX's prefill logits.
+``tests/test_torch_model.py``). ``prefill`` with an ``axis_info`` (each
+rank its block of the rows, the MoE split over the ranks, the pools this
+rank's stripe without a headroom page) is held to its rows of JAX's
+prefill logits.
 ``moe_ffn`` over 2 ranks (EP, and per-expert ffn TP with 3 experts) is
 held to JAX's single-device layer: 1e-5 in f32, 2e-2 in bf16 (each rank
 rounds its partial output to bf16 before the sum, as the JAX package's
@@ -261,15 +263,19 @@ def test_sharded_decode_matches_jax(name, sharded_runs):
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_sharded_prefill_matches_jax(name, sharded_runs):
-    """``prefill`` with an axis_info (a MoE routed over the ranks: tokens
-    split over data, experts over model) gives JAX's prefill logits, and
-    its pools carry no decode-headroom page."""
+    """``prefill`` with an axis_info (this rank's block of the rows over
+    data, every row when they do not divide; a MoE's experts over model)
+    gives its rows of JAX's prefill logits, and its pools are this rank's
+    stripe of the prompt's pages, with no decode-headroom page."""
     refs, _, ranks = sharded_runs
     _, _, tol, rows, pages, _ = CASES[name]
-    for r in ranks:
-        close(r[name]["prefill"], refs[name]["prefill"], tol)
-        if "prefill_pages" in r[name]:  # the (self) pools: the prompt's pages, one more striped in four
-            assert r[name]["prefill_pages"] == rows * pages
+    for i, r in enumerate(ranks):
+        want = refs[name]["prefill"]
+        if rows % 2 == 0:  # data shard i // 2 of two
+            want = want[i // 2 * rows // 2:(i // 2 + 1) * rows // 2]
+        close(r[name]["prefill"], want, tol)
+        if "prefill_pages" in r[name]:  # the (self) pools: the prompt's pages striped in four; one more a row
+            assert r[name]["prefill_pages"] == -(-rows * pages // 4)
             assert r[name]["pool_pages"] == -(-rows * (pages + 1) // 4)
 
 
