@@ -171,26 +171,31 @@ JAX package), and it:
     rank 1's flash kernel, plain version and SDPA on its local heads;
 16. trains across ranks (``train_sharded_phase``): the oracles first, in
     this process, then four spawned ranks of a ``(data 2, model 2)`` mesh
-    (gloo on the one card). (a) ``llama3_2-1b`` at full width cut to 2
-    layers, 3 steps of 8 x 2048 tokens from ``TokenPipeline`` (grad_accum
-    4: A = 4, one row a rank a microbatch), held to the same steps
-    unsharded: the losses, the first step's gradients and the moments
-    after it, leaf by leaf; (b) ``mixtral-8x7b`` at full width cut to 1
+    (gloo on the one card), the params and AdamW moments in the JAX
+    package's layout (``param_shardings``: FSDP over ``data``, heads, ffn
+    and vocab over ``model``), in f32 compute (``TRAIN_SHARD_COMPUTE``).
+    (a) ``llama3_2-1b`` at full width and all 16 layers, 2 steps of 4 x
+    2048 tokens from ``TokenPipeline`` (grad_accum 4: A = 2, one row a
+    rank a microbatch), held to the same steps unsharded: the losses, the
+    first step's gradients and the moments after it, leaf by leaf, and the
+    state and batch a rank holds to the byte the dry run's count
+    (``dryrun.arguments``); (b) ``mixtral-8x7b`` at full width cut to 1
     layer, capacity factor 4, 4 experts a rank, drawn one rank at a time,
     one step of 2 x 2048 tokens held to the JAX package's sharded rule run
-    on one device (each data shard's rows routed alone); in both the
-    replicas' state bit-equal after every step; (c) ``compressed_pod_mean``
-    over a ``(pod 2, data 2)`` mesh on (a)'s leaf shapes with pods that
-    differ: each mean within one quantization step of the exact pod mean,
-    each residual exactly ``g - q * scale`` rounded once, means bit-equal
-    across ranks, 50 error-feedback steps converging; (d) the launcher with
-    ``model_parallel=2`` on the smoke config: the loss falls over 30
-    steps, a crash at step 14 and rerun ends on the uninterrupted run's
-    loss, the step-30 checkpoint restored onto ``(data 4, model 1)`` is
-    the final state bit for bit. Prints each rank's median step, the
-    gradient all-reduce's calls, bytes and ms a step, peak memory and the
-    card's free memory (``mem_get_info``) after the first step; checks
-    that neither kernel ran;
+    on one device (each data shard's rows routed alone); in both each
+    leaf bit-equal on the ranks that hold the same block after every
+    step; (c) ``compressed_pod_mean`` over a ``(pod 2, data 2)`` mesh on
+    the leaf shapes of (a)'s model cut to 2 layers with pods that differ:
+    each mean within one quantization step of the exact pod mean, each
+    residual exactly ``g - q * scale`` rounded once, means bit-equal across
+    ranks, 50 error-feedback steps converging; (d) the launcher with
+    ``model_parallel=2`` on the smoke config (the JAX layout): the loss
+    falls over 30 steps, a crash at step 14 and rerun ends on the
+    uninterrupted run's loss, the step-30 checkpoint restored onto ``(data
+    4, model 1)`` is the final state bit for bit. Prints each rank's steps,
+    the gradient all-reduce's calls, bytes and ms a step, peak memory and
+    the card's free memory (``mem_get_info``) after the first step, and
+    the step's seconds; checks that neither kernel ran;
 17. the dry run (``repro_torch.launch.dryrun``, fake tensors on fake
     ranks, nothing allocated), held to the card in about 40 s: (a) its
     CLI for ``llama3_2-1b`` at ``decode_32k`` and ``train_4k`` on the 16 x
@@ -2770,7 +2775,7 @@ def _held_weights(cfg, ai) -> tuple:
         return n * item
 
     sizes = []
-    shd._map(lambda *a: sizes.append(size(*a)), param_shapes(cfg), shd.serving_specs(cfg, ai))
+    shd._map(lambda *a: sizes.append(size(*a)), param_shapes(cfg), shd.jax_specs(cfg, ai))
     rows = MIXTRAL_PROMPT if cfg.is_moe else PROMPT
     return sum(sizes), dryrun.arguments(dataclasses.replace(cfg, param_dtype=cfg.compute_dtype), "prefill", 8, rows, ai)
 
@@ -3023,14 +3028,23 @@ def sharded_phase(card) -> dict:
 
 
 # ------------------------------ step 16: training across ranks ------------------------------
-TRAIN_SHARD_LAYERS = 2  # of llama3_2-1b's 16: four ranks share the card, each holding f32 params, AdamW
-# moments and f32 gradients (384 M parameters x 16 B = 6.1 GB) beside one 2048-token row's activations
-TRAIN_SHARD_ROWS, TRAIN_SHARD_STEPS = 8, 3  # 8 x 2048 tokens a step; grad_accum 4 over 2 data shards: A = 4
+TRAIN_SHARD_LAYERS = 16  # all of llama3_2-1b's: in the JAX package's layout a rank holds 374.6 M of its
+# 1235.8 M parameters (the blocks over both axes, the table over model), f32 params, AdamW moments and
+# gradients about 6.0 GB, beside one 2048-token row's activations; four ranks share the card
+TRAIN_SHARD_ROWS, TRAIN_SHARD_STEPS = 4, 2  # 4 x 2048 tokens a step; grad_accum 4 over 2 data shards: A = 2
+POD_MEAN_LAYERS = 2  # (c)'s leaf shapes: llama3_2-1b cut to 2 layers (four f32 trees of them a rank)
 MOE_TRAIN_LAYERS = 1  # of mixtral-8x7b's 32: one layer's f32 experts are 5.6 GB, 2.8 GB a model rank
 MOE_TRAIN_ROWS = 2  # 2 x 2048 tokens, one row a data shard (A = 1): a rank's state is about 14 GB
 MOE_TRAIN_CAPACITY = 4.0  # as step 15 (b): every assignment gets a slot, so no run drops any
-# bf16 compute: the sharded loss against the unsharded (or, for the MoE, the shard-by-shard
-# single-device) oracle, relative; a leaf's gradient (and moment), max |d| over max |oracle|
+# the compute dtype of step 16's cells. In the JAX layout a rank's products with its weight blocks
+# over the model axis are partial sums, each rounded to the compute dtype before they are summed:
+# in bf16 the 16-layer step's leaves then land 2.0-3.4% (of a leaf's largest) off the unsharded
+# oracle, whose own spread over another microbatch split is 0.5-1.0%, and mixtral's routes flip
+# (24% on its table), so a wrong factor or block below a few percent would not show. In f32 both
+# cells agree with their oracles to about 1e-5 (PERF.md §6, tools/train_sharded_precision.py)
+TRAIN_SHARD_COMPUTE = "float32"
+# the sharded loss against the unsharded (or, for the MoE, the shard-by-shard single-device)
+# oracle, relative; a leaf's gradient (and moment), max |d| over max |oracle|
 TRAIN_SHARD_LOSS_TOL = 2e-3
 TRAIN_SHARD_GRAD_TOL = 2e-2
 TRAIN_SHARD_DEADLINE_S = 600.0  # every rank and every collective of step 16 ends by this deadline
@@ -3084,9 +3098,10 @@ def _pipeline_batches(vocab: int, rows: int, steps: int, seed: int = 0) -> list:
 def _train_shard_configs() -> tuple:
     from repro_torch.configs import get_config
 
-    llama = dataclasses.replace(get_config("llama3_2-1b"), n_layers=TRAIN_SHARD_LAYERS)
+    llama = dataclasses.replace(get_config("llama3_2-1b"), n_layers=TRAIN_SHARD_LAYERS,
+                                compute_dtype=TRAIN_SHARD_COMPUTE)
     mixtral = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=MOE_TRAIN_LAYERS,
-                                  capacity_factor=MOE_TRAIN_CAPACITY)
+                                  capacity_factor=MOE_TRAIN_CAPACITY, compute_dtype=TRAIN_SHARD_COMPUTE)
     return llama, mixtral
 
 
@@ -3116,11 +3131,14 @@ class _GradTap:
 
 def llama_train_oracle(cfg, dev, batches, path) -> list:
     """Step 16 (a)'s oracle: the same steps unsharded, on this process's
-    card; the first step's gradients and the moments after it saved to
-    ``path`` on the host; returns the losses."""
+    card, in the sharded run's microbatches; the first step's gradients and
+    the moments after it saved to ``path`` on the host; returns the losses."""
     from repro_torch.models.lm import build_model
     from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.trainer import n_microbatches
 
+    cfg = dataclasses.replace(cfg, grad_accum=n_microbatches(len(batches[0]["labels"]), cfg.grad_accum,
+                                                             RANKS // RANKS_MODEL))
     model = build_model(cfg)
     params, opt_state = init_train_state(model, seed=0, device=dev)
     step = make_train_step(model, cfg, _shard_opt_cfg())
@@ -3182,11 +3200,11 @@ def _timed_reduce(dev, out: dict):
 
     inner = trainer.reduce_gradients
 
-    def run(grads, axis_info):
+    def run(grads, axis_info, held):
         before = dict(collectives.stats)
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        inner(grads, axis_info)
+        inner(grads, axis_info, held)
         torch.cuda.synchronize(dev)
         out["ms"].append((time.perf_counter() - t0) * 1e3)
         for k in ("calls", "bytes"):
@@ -3197,27 +3215,30 @@ def _timed_reduce(dev, out: dict):
 
 
 def _sharded_train_cell(cfg, ai, dev, batches, oracle_path, in_turn: bool) -> dict:
-    """Train ``cfg`` across the ranks on the global ``batches``: each step's
-    host ms (synchronised), loss, gradient all-reduce calls, bytes and ms,
-    the state's digests after each step, the memory after the first step,
-    and each leaf's error against the oracle's first-step gradients (and
-    the moments after that step, when saved)."""
+    """Train ``cfg`` across the ranks, in the JAX package's layout, on the
+    global ``batches``: each step's host ms (synchronised), loss, gradient
+    all-reduce calls, bytes and ms, the state's digests after each step,
+    the memory after the first step, the bytes of the state and batch the
+    rank holds beside the dry run's count, and each leaf's error against
+    the oracle's first-step gradients (and the moments after that step,
+    when saved)."""
     import torch.distributed as dist
 
-    from repro_torch.convert import param_shapes
+    from repro_torch.launch import dryrun
     from repro_torch.models.lm import build_model
     from repro_torch.parallel import sharding as shd
     from repro_torch.train import adamw_init, make_train_step, trainer
 
     model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats(dev)
-    for r in range(ai.mesh.size if in_turn else 1):  # one rank at a time draws the whole model
+    for r in range(ai.mesh.size if in_turn else 1):  # ranks in turn: each draws one layer whole at a time
         if not in_turn or r == ai.mesh.rank:
-            params = shd.shard_params(model.init(seed=0, device=dev), cfg, ai, copy=True)
+            params = model.init(seed=0, device=dev, axis_info=ai)  # the layout's blocks
             gc.collect()
             torch.cuda.empty_cache()
         if in_turn:
             dist.barrier()
+    specs = _paths(shd.held_specs(params, cfg, ai))
     opt_state = adamw_init(params)
     step = make_train_step(model, cfg, _shard_opt_cfg(), axis_info=ai)
     oracle = torch.load(oracle_path, mmap=True)  # read leaf by leaf after the steps
@@ -3237,6 +3258,9 @@ def _sharded_train_cell(cfg, ai, dev, batches, oracle_path, in_turn: bool) -> di
             out["grad_calls"].append(reduce["calls"])
             out["grad_bytes"].append(reduce["bytes"])
             if i == 0:
+                held = [*_paths(params).values(), *_paths(opt_state).values()]
+                out["state_bytes"] = sum(t.numel() * t.element_size() for t in held) + sum(
+                    v.nbytes for v in b.values())  # the global batch: every rank reads all of it
                 free, total = torch.cuda.mem_get_info(dev)
                 out.update(peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, card_free_gib=free / 2**30,
                            card_total_gib=total / 2**30)
@@ -3250,22 +3274,16 @@ def _sharded_train_cell(cfg, ai, dev, batches, oracle_path, in_turn: bool) -> di
         tap.restore()
         untime()
     out["reduce_ms"] = reduce["ms"]
-    specs = _paths(shd.local_param_specs(param_shapes(cfg), cfg, ai))
-    errs, worst = {}, {}
-    for part in mine:
-        errs[part] = 0.0
-        for p, t in mine[part].items():
-            want = oracle[part]["/".join(p)]
-            if len(specs[p]):
-                want = shd.shard_leaf(want, specs[p], ai)
-            e = _leaf_err(t, want, dev)
-            if e > errs[part]:
-                errs[part], worst[part] = e, "/".join(p)
-    out.update(errs=errs, worst_leaf=worst, expert_bytes=sum(
-        t.numel() * t.element_size() for p, t in _paths(params).items() if len(specs[p])))
+    out["dry_run_bytes"] = dryrun.arguments(cfg, "train", len(batches[0]["labels"]), TRAIN_SEQ, ai)
+    leaf_errs = {part: {"/".join(p): _leaf_err(t, shd.shard_leaf(oracle[part]["/".join(p)], specs[p], ai), dev)
+                        for p, t in mine[part].items()} for part in mine}
+    errs = {part: max(e.values()) for part, e in leaf_errs.items()}
+    worst = {part: max(e, key=e.get) for part, e in leaf_errs.items()}
+    out.update(errs=errs, worst_leaf=worst, leaf_errs=leaf_errs)
     print(f"  [rank {ai.mesh.rank}] steps {[round(x, 1) for x in out['steps_ms']]} ms, losses {out['losses']}, "
-          f"gradient all-reduce {[round(x, 1) for x in out['reduce_ms']]} ms, peak {out['peak_gib']:.2f} GiB, card free "
-          f"{out['card_free_gib']:.2f} GiB, errors {errs}", flush=True)
+          f"gradient all-reduce {[round(x, 1) for x in out['reduce_ms']]} ms, state and batch {out['state_bytes']} "
+          f"bytes (dry run {out['dry_run_bytes']}), peak {out['peak_gib']:.2f} GiB, card free "
+          f"{out['card_free_gib']:.2f} GiB, errors {errs} (worst {worst})", flush=True)
     del params, opt_state, mine, oracle
     gc.collect()
     torch.cuda.empty_cache()
@@ -3355,8 +3373,9 @@ def _launcher_cell(dev) -> dict:
         ai2 = launch_mesh.make_axis_info(launch_mesh.make_mesh((4, 1), ("data", "model")))
         state = restore_onto_mesh(run["checkpointer"], state_specs(cfg, ai2), ai2, step=30, device=dev)
         final = shd.gather_params(run["params"], cfg, run["axis_info"])
-        restored = all(bits_equal(a, b) for a, b in zip(_paths(state["params"]).values(), _paths(final).values()))
-        restored &= all(bits_equal(a, b) for a, b in zip(_paths(state["opt"]["m"]).values(),
+        got = shd.gather_params(state["params"], cfg, ai2)  # the (data 4, model 1) blocks, regathered
+        restored = all(bits_equal(a, b) for a, b in zip(_paths(got).values(), _paths(final).values()))
+        restored &= all(bits_equal(a, b) for a, b in zip(_paths(shd.gather_params(state["opt"]["m"], cfg, ai2)).values(),
                                                          _paths(shd.gather_params(run["opt_state"]["m"], cfg,
                                                                                   run["axis_info"])).values()))
     finally:
@@ -3397,7 +3416,7 @@ def train_sharded_rank(ai, chosen, card, batches, oracle_paths):
                                                              in_turn=False)),
                       ("mixtral", lambda: _sharded_train_cell(mixtral, ai, dev, batches["mixtral"],
                                                                oracle_paths["mixtral"], in_turn=True)),
-                      ("pod_mean", lambda: _pod_mean_cell(llama, dev)),
+                      ("pod_mean", lambda: _pod_mean_cell(dataclasses.replace(llama, n_layers=POD_MEAN_LAYERS), dev)),
                       ("launcher", lambda: _launcher_cell(dev))):
         t0 = time.perf_counter()
         out[name] = run()
@@ -3447,11 +3466,11 @@ def train_sharded_phase(card) -> dict:
     out = {"backend": res[0]["backend"], "spawn_s": spawn_s, "card": card}
     for name, oracle in (("llama", oracle_losses), ("mixtral", [moe_loss])):
         rs = [r[name] for r in res]
-        expert = _expert_mask(name)
-        for i in range(len(rs[0]["digests"])):  # replicated leaves as rank 0's, expert blocks as their model rank's
+        replica = _first_replicas(name)
+        for i in range(len(rs[0]["digests"])):  # each leaf as the first rank's that holds the same block
             for rank in range(1, RANKS):
-                for j, (mine, sharded) in enumerate(zip(rs[rank]["digests"][i], expert)):
-                    check(mine == rs[rank % RANKS_MODEL if sharded else 0]["digests"][i][j],
+                for j, mine in enumerate(rs[rank]["digests"][i]):
+                    check(mine == rs[replica[j][rank]]["digests"][i][j],
                           f"step 16 {name}: rank {rank}'s state after step {i + 1} differs from its replicas")
         loss_rel = [abs(a - b) / abs(b) for a, b in zip(rs[0]["losses"], oracle)]
         row = {"steps_ms": [r["steps_ms"] for r in rs], "median_step_ms": [statistics.median(r["steps_ms"]) for r in rs],
@@ -3460,7 +3479,7 @@ def train_sharded_phase(card) -> dict:
                "grad_allreduce_ms": [statistics.median(r["reduce_ms"]) for r in rs],
                "peak_gib": [r["peak_gib"] for r in rs], "card_free_gib": [r["card_free_gib"] for r in rs],
                "errs": [r["errs"] for r in rs], "worst_leaf": rs[0]["worst_leaf"],
-               "expert_bytes": [r["expert_bytes"] for r in rs]}
+               "state_bytes": [r["state_bytes"] for r in rs], "dry_run_bytes": [r["dry_run_bytes"] for r in rs]}
         tag = "a" if name == "llama" else "b"
         print(f"  ({tag}) {name}: losses {row['losses']} vs oracle {oracle} (relative {max(loss_rel):.2e}, tol "
               f"{TRAIN_SHARD_LOSS_TOL}); worst leaf vs oracle, over its max: "
@@ -3470,8 +3489,12 @@ def train_sharded_phase(card) -> dict:
               f"gradient all-reduce {row['grad_allreduce_calls']} calls, {row['grad_allreduce_bytes']} bytes, "
               f"{[round(x, 1) for x in row['grad_allreduce_ms']]} ms a step; peak {[round(x, 2) for x in row['peak_gib']]} "
               f"GiB a rank, card free after step 1 {[round(x, 2) for x in row['card_free_gib']]} GiB "
-              f"(mem_get_info); expert bytes a rank {row['expert_bytes']}; {card}", flush=True)
+              f"(mem_get_info); state and batch a rank {row['state_bytes']} bytes, the dry run's "
+              f"{row['dry_run_bytes']}; {card}", flush=True)
         check(max(loss_rel) <= TRAIN_SHARD_LOSS_TOL, f"step 16 {name}: sharded loss off the oracle: {loss_rel}")
+        if name == "llama":  # the router's dtype is f32 in a model whose other leaves are not: (a) only
+            check(row["state_bytes"] == row["dry_run_bytes"],
+                  f"step 16 (a): the ranks hold {row['state_bytes']} bytes, the dry run counts {row['dry_run_bytes']}")
         check(all(max(e.values()) <= TRAIN_SHARD_GRAD_TOL for e in row["errs"]),
               f"step 16 {name}: gradients or moments off the oracle: {row['errs']}")
         out[name] = row
@@ -3508,18 +3531,21 @@ def train_sharded_phase(card) -> dict:
     return out
 
 
-def _expert_mask(name: str) -> list:
+def _first_replicas(name: str) -> list:
     """For each digest of a cell's state (params, then m, then v, leaves in
-    order), whether the leaf is an expert block (one per model rank)."""
-    from repro_torch.convert import param_shapes
-    from repro_torch.launch.mesh import make_axis_info
+    order), the first rank that holds the same block as each rank."""
     from repro_torch.parallel import sharding as shd
-    from repro_torch.parallel.axisinfo import Mesh
+    from repro_torch.parallel.axisinfo import AxisInfo, Mesh
 
     llama, mixtral = _train_shard_configs()
     cfg = llama if name == "llama" else mixtral
-    ai = make_axis_info(Mesh((RANKS // RANKS_MODEL, RANKS_MODEL), ("data", "model")))
-    return [bool(len(s)) for s in _paths(shd.local_param_specs(param_shapes(cfg), cfg, ai)).values()] * 3
+    mesh = Mesh((RANKS // RANKS_MODEL, RANKS_MODEL), ("data", "model"))
+    out = []
+    for spec in _paths(shd.jax_specs(cfg, AxisInfo(mesh, ("data",)))).values():
+        axes = [(e,) if isinstance(e, str) else e for e in spec if e is not None]
+        key = [tuple(mesh.axes_index(a, r) for a in axes) for r in range(mesh.size)]
+        out.append([key.index(k) for k in key])
+    return out * 3
 
 
 # ------------------------------ step 17: the dry run against the card ------------------------------

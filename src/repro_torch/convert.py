@@ -7,10 +7,11 @@ e.g. ``jax.tree.map(np.asarray, params)`` of
 ``build_model(cfg).init(PRNGKey(0))[0]`` -- and returns the port's params
 with the same structure, shapes, dtypes and values; :func:`opt_state_from_jax`
 does the same for the AdamW state. Given an ``axis_info`` it returns this
-rank's params instead, cut before they are copied: in the training layout
-the expert weights cut to the rank's shard
-(:func:`repro_torch.parallel.sharding.local_param_specs`), in the serving
-layout every leaf's ``param_shardings`` block. No JAX is imported here.
+rank's params instead, cut before they are copied: in the ``"jax"``
+layout every leaf's ``param_shardings`` block (what serving and training
+across ranks take), in the ``"experts"`` layout the expert weights cut to
+the rank's shard (:func:`repro_torch.parallel.sharding.local_param_specs`).
+No JAX is imported here.
 """
 
 from __future__ import annotations
@@ -114,10 +115,10 @@ def _convert(tree, shapes, device, path: Tuple[str, ...], take=lambda path, arr:
 
 
 def params_from_jax(params_np, cfg: ModelConfig, device="cuda", axis_info: Optional[AxisInfo] = None,
-                    layout: str = "train"):
+                    layout: str = "experts"):
     """JAX param pytree (numpy leaves) -> the port's params on ``device``;
-    with ``axis_info``, this rank's in ``layout``: ``"train"`` (its experts
-    or expert ffn columns) or ``"serving"`` (every leaf's block)."""
+    with ``axis_info``, this rank's in ``layout``: ``"jax"`` (every leaf's
+    block) or ``"experts"`` (its experts or expert ffn columns)."""
     shapes = param_shapes(cfg)
     device = resolve_device(device)
     if axis_info is None:

@@ -11,11 +11,9 @@ ranks as rank 0, and counts what rank 0 runs with
 :mod:`repro_torch.launch.cost`. The params come from
 :func:`repro_torch.convert.param_shapes` (the real init draws from a
 generator, which fake tensors cannot), laid out as the port lays them out
-(:func:`repro_torch.parallel.sharding.shard_params`): ``prefill`` and
-``decode`` cells in the serving layout, every leaf its ``param_shardings``
-block, the JAX package's own layout; ``train`` cells in the training
-layout (the experts split over the model axis, every other leaf
-replicated) until training takes the serving layout too. A prefill takes
+(:func:`repro_torch.parallel.sharding.shard_params`): every cell in the
+``"jax"`` layout, every leaf its ``param_shardings`` block, the JAX
+package's own layout (a train cell's AdamW moments too). A prefill takes
 the global batch and reads this rank's rows of it, so its arguments count
 those rows (the block ``batch_shardings`` gives the rank, as the JAX
 package's ``in_shardings``); decode rows are replicated on every rank, and
@@ -88,14 +86,14 @@ def fake_world(world_size: int):
         dist.destroy_process_group()
 
 
-def abstract_params(cfg: ModelConfig, axis_info: Optional[AxisInfo], layout: str = "train"):
-    """This rank's params in ``layout`` as tensors of the current mode
+def abstract_params(cfg: ModelConfig, axis_info: Optional[AxisInfo]):
+    """This rank's params in the ``"jax"`` layout as tensors of the current mode
     (fake or meta inside one), every leaf in ``cfg.pdtype()``; the blocks
     are copies, so that each holds only its own bytes."""
     params = shd._map(lambda _, shape: torch.empty(shape, dtype=cfg.pdtype()), param_shapes(cfg))
     if axis_info is None:
         return params
-    return shd.shard_params(params, cfg, axis_info, copy=True, layout=layout)
+    return shd.shard_params(params, cfg, axis_info, copy=True, layout="jax")
 
 
 def _materialize(spec: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -127,13 +125,12 @@ def build_step(cfg: ModelConfig, kind: str, batch: int, seq: int, axis_info: Opt
     tokens (its pools padded and striped over the page axes). ``held`` is
     what the rank holds of ``args``: a prefill's batch cut to its rows."""
     model = build_model(cfg)
+    params = abstract_params(cfg, axis_info)
     if kind == "train":
-        params = abstract_params(cfg, axis_info)
         step = make_train_step(model, cfg, AdamWConfig(), axis_info)
         data = _materialize(S.train_batch_spec(cfg, batch, seq))
         args = (params, adamw_init(params), data)
         return step, args, args
-    params = abstract_params(cfg, axis_info, layout="serving")
     if kind == "prefill":
         spec = S.prefill_batch_spec(cfg, batch, seq)
         data = _prefill_inputs(cfg, _materialize(spec))

@@ -15,12 +15,15 @@ JAX package's ``COORDINATOR_ADDRESS``/``NUM_PROCESSES``/``PROCESS_ID``):
     RANK=0 WORLD_SIZE=4 MASTER_ADDR=localhost MASTER_PORT=29500 \
         PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_2-1b --smoke --model-parallel 2
 
-and the same with ``RANK`` 1-3. Every rank reads the global batch from a
-pipeline over its own copy of the corpus (the blob store lives in one
-process; the JAX package's one process reads the global batch too), trains
-on its data shard, and rank 0 holds the checkpoints: the experts are
-regathered over the model axis before each save, and a restore broadcasts
-each leaf (:func:`repro_torch.storage.checkpoint.restore_onto_mesh`). Runs
+and the same with ``RANK`` 1-3. The params and both AdamW moments are
+held in the JAX launcher's layout, ``param_shardings`` (heads, ffn, vocab
+and the experts over ``model``, ``embed`` over ``data``: FSDP). Every rank
+reads the global batch from a pipeline over its own copy of the corpus
+(the blob store lives in one process; the JAX package's one process reads
+the global batch too), trains on its data shard, and rank 0 holds the
+checkpoints of the logical state: every leaf is regathered before each
+save, and a restore broadcasts each leaf and keeps this rank's block on
+any mesh (:func:`repro_torch.storage.checkpoint.restore_onto_mesh`). Runs
 on the card unless ``--device cpu``.
 """
 
@@ -65,18 +68,19 @@ def maybe_init_distributed(device="cuda"):
 
 def state_specs(cfg, axis_info):
     """The spec tree of the training state ``{"params", "opt"}`` as a rank
-    holds it (:func:`shd.local_param_specs`; the step replicated)."""
-    from repro_torch.convert import param_shapes
-
-    specs = shd.local_param_specs(param_shapes(cfg), cfg, axis_info)
+    holds it (the ``"jax"`` layout, :func:`shd.jax_specs`; the step
+    replicated)."""
+    specs = shd.jax_specs(cfg, axis_info)
     return {"params": specs, "opt": {"m": specs, "v": specs, "step": shd.P()}}
 
 
-def _meta(tree):
-    """Shapes and dtypes only: the checkpointer's template."""
-    if isinstance(tree, dict):
-        return {k: _meta(v) for k, v in tree.items()}
-    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+def _logical_meta(params, cfg):
+    """The full shapes with the dtypes of ``params`` (a rank's blocks): the
+    checkpointer's template of the logical params."""
+    from repro_torch.convert import param_shapes
+
+    return shd._map(lambda _, shape, leaf: torch.empty(shape, dtype=leaf.dtype, device="meta"),
+                    param_shapes(cfg), params)
 
 
 
@@ -133,16 +137,14 @@ def train(
     rank = mesh.rank
 
     model = build_model(cfg)
-    params = model.init(seed=seed, device=dev)
-    template = {"params": _meta(params), "opt": adamw_init(_meta(params))}  # the logical state's layout
-    if axis_info is not None:  # this rank's experts, in tensors of their own
-        params = shd.shard_params(params, cfg, axis_info, copy=True)
+    params = model.init(seed=seed, device=dev, axis_info=axis_info)  # this rank's blocks across ranks
+    template = {"params": _logical_meta(params, cfg), "opt": adamw_init(_logical_meta(params, cfg))}
     opt_state = adamw_init(params)
     opt_cfg = AdamWConfig(lr=lr, total_steps=steps, warmup_steps=max(steps // 10, 1))
     step_fn = make_train_step(model, cfg, opt_cfg, axis_info)
 
     def full_state():
-        """The logical state (experts regathered; every rank calls it)."""
+        """The logical state (every leaf regathered; every rank calls it)."""
         if axis_info is None:
             return {"params": params, "opt": opt_state}
         return {"params": shd.gather_params(params, cfg, axis_info),

@@ -6,8 +6,8 @@ Weight layouts are the JAX package's: ``wq (d, H, hd)``, ``wk``/``wv
 rank's block (``embed`` over ``data``, heads over ``model``; see
 :mod:`repro_torch.models.layers` for the rule of a product with a block):
 
-* **prefill** (:func:`attention_train`; the layer's ``data`` blocks are
-  regathered first) runs tensor-parallel over the model axis: the flash
+* **training and prefill** (:func:`attention_train`; the layer's ``data``
+  blocks are regathered first) run tensor-parallel over the model axis: the flash
   kernel on this rank's H/tp q heads and their K/tp kv heads (or, where
   the kv heads do not divide, the whole ``wk``/``wv`` with the kv heads
   this rank's q heads read sliced out), ``wo`` a partial summed over the
@@ -114,7 +114,23 @@ def attention_train(
 
     Under ``axis_info`` the weights may hold this rank's heads (their
     ``embed`` dims whole): tensor-parallel over the model axis (module
-    docstring); the ``(k, v)`` returned hold every kv head."""
+    docstring); the ``(k, v)`` returned hold every kv head. Under autograd
+    the inputs' cotangents are summed over the model axis (each rank's
+    heads read all of them), and so are those of whole ``wk``/``wv``
+    where the kv heads do not divide the axis (each rank's q heads read
+    only some kv heads); the output's partials are summed with an identity
+    backward."""
+    ha = kv_ha = ()
+    if axis_info is not None:
+        ha = split(params["wq"].shape[1], cfg.n_heads, axis_info.model_axis)
+        kv_ha = ha if params["wk"].shape[1] == cfg.n_kv_heads else ()
+    if ha:  # the inputs meet this rank's heads: their cotangents are partials
+        x = collectives.grad_psum(ha, axis_info.mesh, x)
+        if kv_src is not None:
+            kv_src = collectives.grad_psum(ha, axis_info.mesh, kv_src)
+    if kv_ha:  # whole kv heads, of which this rank reads some
+        params = dict(params, **dict(zip(("wk", "wv"), collectives.grad_psum(
+            kv_ha, axis_info.mesh, params["wk"], params["wv"]))))
     if kv_src is not None:
         ct = cfg.cdtype()
         q = project(x, params["wq"], ct)
@@ -124,11 +140,10 @@ def attention_train(
     else:
         q, k, v = qkv(params, x, cfg, None, rope=rope)
     window = cfg.sliding_window if causal else None
-    ha = () if axis_info is None else split(q.shape[2], cfg.n_heads, axis_info.model_axis)
     ka = () if axis_info is None else split(k.shape[2], cfg.n_kv_heads, axis_info.model_axis)
     kf, vf = k, v
     if ka and return_kv:  # every kv head, for the cache
-        kf, vf = (t.movedim(0, 2) for t in collectives.regather_many(
+        kf, vf = (t.movedim(0, 2) for t in collectives.tp_gather(
             [k.movedim(2, 0), v.movedim(2, 0)], ka, axis_info.mesh))
     elif ha and not ka:  # whole kv heads: the ones this rank's q heads read
         read = _kv_heads_read(cfg, q.shape[2], axis_info)
@@ -136,7 +151,7 @@ def attention_train(
     o = ops.flash_attention(q, k, v, causal=causal, window=window, q_chunk=cfg.attn_chunk, impl=impl)
     out = out_proj(params, o, cfg)
     if ha:
-        out = collectives.psum(out, ha, axis_info.mesh)
+        out = collectives.tp_gather([out], (), axis_info.mesh, ha)[0]
     if return_kv:
         return out, (kf, vf)
     return out
@@ -226,7 +241,7 @@ def _decode_qkv(params, x: torch.Tensor, cfg: ModelConfig, axis_info: Optional[A
     out = {}
     for ha, group in groups.items():
         ws = [params[n].to(ct).reshape(d, -1) for n in group]
-        for n, y in zip(group, sharded_products(xl, ws, mesh, sum_axes=da, gather_axes=ha)):
+        for n, y in zip(group, sharded_products(xl, ws, mesh, sum_axes=da, out_axes=ha)):
             out[n] = y.reshape(*x.shape[:-1], -1, cfg.head_dim)
     return [out[n] for n in names]
 
@@ -243,7 +258,7 @@ def _decode_out(params, o: torch.Tensor, cfg: ModelConfig, axis_info: Optional[A
     ha = split(H_held, cfg.n_heads, axis_info.model_axis)
     da = split(d_held, cfg.d_model, FSDP_AXIS)
     o = block_of(o.reshape(*o.shape[:-2], -1), -1, ha, mesh)
-    return sharded_products(o, [wo.reshape(H_held * hd, d_held)], mesh, sum_axes=ha, gather_axes=da)[0]
+    return sharded_products(o, [wo.reshape(H_held * hd, d_held)], mesh, sum_axes=ha, out_axes=da)[0]
 
 
 def init_decode_cache(

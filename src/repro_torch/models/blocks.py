@@ -2,7 +2,13 @@
 transformer block (dense or MoE), the encoder-decoder's decoder block (of
 :func:`repro.models.lm._encdec_lm`) and the Mamba2 block, and the training
 loop over stacked layers with remat (:func:`scan_apply`). The JAX package's
-``lax.scan`` over stacked layers becomes a Python loop."""
+``lax.scan`` over stacked layers becomes a Python loop.
+
+Across ranks the training loss gathers each layer's ``data`` blocks in the
+body that :func:`scan_apply` and :func:`checkpoint_wrap` run under remat:
+the checkpoint saves the blocks, the gathered copy is freed after the
+forward and gathered again in the recomputation, and every rank issues
+the same collectives in the same order, in the recomputation too."""
 
 from __future__ import annotations
 
@@ -55,12 +61,13 @@ def block_apply(
     """Full-sequence block (prefill, encoder, training). Returns (x, aux),
     or (x, aux, (k, v)). Under ``axis_info`` the weights are whole or hold
     this rank's heads, ffn columns or experts (their ``embed`` dims whole:
-    a prefill regathers them first), which run split over the model axis;
+    prefill and training regather them first), which run split over the model axis;
     the returned K/V hold every kv head. ``local_batch``: ``x`` is this
     rank's data shard (training, prefill; :func:`moe_mod.moe_ffn`)."""
     h = rmsnorm(x, params["ln1"])
-    a, kv = attn.attention_train(params["attn"], h, cfg, causal=causal, return_kv=True, impl=impl,
-                                 axis_info=axis_info)
+    a = attn.attention_train(params["attn"], h, cfg, causal=causal, return_kv=return_kv, impl=impl,
+                             axis_info=axis_info)
+    a, kv = a if return_kv else (a, None)
     x = x + a
     f, aux = _ffn(params["ffn"], rmsnorm(x, params["ln2"]), cfg, axis_info, local_batch)
     x = x + f
@@ -87,10 +94,12 @@ def dec_block_init(gen: torch.Generator, cfg: ModelConfig):
 
 
 def dec_block_apply(params, x: torch.Tensor, enc_out: torch.Tensor, cfg: ModelConfig, *,
-                    impl: Optional[str] = None, axis_info: Optional[AxisInfo] = None):
-    """Full-sequence decoder block (prefill). Returns (x, the self-attention's (k, v))."""
-    a, kv = attn.attention_train(params["self"], rmsnorm(x, params["ln1"]), cfg, return_kv=True, impl=impl,
-                                 axis_info=axis_info)
+                    impl: Optional[str] = None, axis_info: Optional[AxisInfo] = None, return_kv: bool = True):
+    """Full-sequence decoder block (prefill, training). Returns (x, the
+    self-attention's (k, v), or None without ``return_kv``)."""
+    a = attn.attention_train(params["self"], rmsnorm(x, params["ln1"]), cfg, return_kv=return_kv, impl=impl,
+                             axis_info=axis_info)
+    a, kv = a if return_kv else (a, None)
     x = x + a
     x = x + attn.attention_train(params["cross"], rmsnorm(x, params["ln2"]), cfg, kv_src=enc_out, impl=impl,
                                  axis_info=axis_info)

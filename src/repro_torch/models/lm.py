@@ -6,7 +6,7 @@
 * ``init(seed=0, device="cuda", dtype=None, axis_info=None) -> params`` --
   nested dicts with the JAX package's layout, per-layer leaves stacked
   ``(L, ...)`` (the hybrid's Mamba2 layers ``(n_groups, per_group, ...)``);
-  with ``axis_info`` this rank's blocks of the serving layout, each layer
+  with ``axis_info`` this rank's blocks of the ``"jax"`` layout, each layer
   drawn whole and cut, so that no more than one layer's full leaves are
   ever held (bit-equal to the blocks of the unsharded init);
 * ``prefill(params, inputs, impl=None, axis_info=None) -> (logits, cache)``,
@@ -35,10 +35,12 @@ autograd; the training loss's attention is ``ops.flash_attention``'s
 backward; neither CUDA kernel runs in training.
 
 Across ranks (``axis_info``, one process per rank; see
-:mod:`repro_torch.parallel.sharding`), serving takes the params in the
-serving layout (each leaf its ``param_shardings`` block; the training
-layout, experts split and every other leaf whole, is read too: the model
-code reads each leaf's split from its shape):
+:mod:`repro_torch.parallel.sharding`), every path takes the params in the
+JAX package's layout (each leaf its ``param_shardings`` block: FSDP over
+``data``, heads, ffn, vocab, the SSM projections and the experts over
+``model``); the layout the port trained in first (experts split, every
+other leaf whole) is read too: the model code reads each leaf's split from
+its shape:
 
 * ``prefill`` takes the global batch and computes this rank's block of its
   rows over the batch axes (every row when they do not divide,
@@ -55,15 +57,20 @@ code reads each leaf's split from its shape):
   summed, and only activations move (``layers.sharded_products``). It
   takes the pools striped and the SSM states replicated (the JAX package
   shards those over the batch axes; each row's state depends on that row
-  alone, so the numbers are the same).
+  alone, so the numbers are the same);
+* ``train_loss`` takes the global batch, as the JAX package's does, and
+  computes on this rank's block of its rows (every row when they do not
+  divide over the batch axes): its loss and metrics are the rank's shares,
+  whose sums over the batch axes are the JAX package's values
+  (:func:`_shard_batch`). Each layer's ``data`` blocks are gathered inside
+  the remat region (their gradients reduce-scattered in the backward),
+  the model axis runs tensor-parallel as in prefill, and the
+  cross-entropy is vocab-parallel (``layers.cross_entropy(axes=)``); the
+  collectives are the autograd forms of
+  :mod:`repro_torch.parallel.collectives`.
 
 The JAX package's layout hints (``constrain_batch``, ``_constrain_logits``)
-have no effect on the numbers and no counterpart here. ``train_loss`` with
-an ``axis_info`` takes the training layout and the global batch, as the
-JAX package's does, and computes on this rank's block of its rows (every
-row when they do not divide over the batch axes): its loss and metrics are
-the rank's shares, whose sums over the batch axes are the JAX package's
-values (:func:`_shard_batch`).
+have no effect on the numbers and no counterpart here.
 """
 
 from __future__ import annotations
@@ -79,7 +86,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import blocks as B
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import cross_entropy, embed, rmsnorm, unembed
+from repro_torch.models.layers import cross_entropy, embed, rmsnorm, unembed, vocab_axes
 from repro_torch.models.modules import embed_init
 from repro_torch.parallel import collectives
 from repro_torch.parallel import sharding as shd
@@ -230,8 +237,8 @@ def _blocks(tree, specs, axis_info: Optional[AxisInfo], copy: bool = True):
 
 
 def _init_specs(axis_info: Optional[AxisInfo], cfg: ModelConfig):
-    """The serving layout's specs for an init under ``axis_info``, else None."""
-    return None if axis_info is None else shd.serving_specs(cfg, axis_info)
+    """The ``"jax"`` layout's specs for an init under ``axis_info``, else None."""
+    return None if axis_info is None else shd.jax_specs(cfg, axis_info)
 
 
 def _stack_keep(specs, axis_info: Optional[AxisInfo], lead: int = 1):
@@ -263,15 +270,17 @@ def _take_rows(inputs, rows: Optional[slice]):
 
 
 def _held(params, cfg: ModelConfig, axis_info: Optional[AxisInfo]):
-    """The specs ``params`` are held in (checked against the serving
+    """The specs ``params`` are held in (checked against the ``"jax"``
     layout), or None without an ``axis_info``."""
     return None if axis_info is None else shd.held_specs(params, cfg, axis_info)
 
 
-def _prefill_layer(lp, specs, axis_info: Optional[AxisInfo]):
-    """One layer's weights as a prefill under ``axis_info`` uses them: every
-    ``data`` block regathered (FSDP: one all-reduce, freed with the layer),
-    and the leaves used whole regathered over the model axis too."""
+def _gathered_layer(lp, specs, axis_info: Optional[AxisInfo]):
+    """One layer's weights as a prefill or a training step under
+    ``axis_info`` uses them: every ``data`` block regathered (FSDP: one
+    all-reduce, freed with the layer; in training its backward is the
+    reduce-scatter of the layer's gradients), and the leaves used whole
+    regathered over the model axis too."""
     if axis_info is None:
         return lp
     lp, specs = shd.gather_over(lp, specs, axis_info, (FSDP_AXIS,))
@@ -288,10 +297,10 @@ def _decode_params(params, specs, axis_info: Optional[AxisInfo]):
 
 
 def _whole_norm(x: torch.Tensor, axis_info: Optional[AxisInfo], cfg: ModelConfig) -> torch.Tensor:
-    """A top-level norm scale, whole."""
+    """A top-level norm scale, whole (an FSDP gather over ``data``)."""
     if axis_info is None or x.shape[-1] == cfg.d_model:
         return x
-    return shd.gather_leaf(x, shd.P(FSDP_AXIS), axis_info)
+    return collectives.gather_blocks(x, FSDP_AXIS, axis_info.mesh)
 
 
 def _generator(seed: int, device) -> torch.Generator:
@@ -319,18 +328,31 @@ def _train_impl(cfg: ModelConfig, impl: str) -> str:
     return impl
 
 
-def _batch_h(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
+def _batch_h(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+             axis_info: Optional[AxisInfo] = None) -> torch.Tensor:
     """A training batch's input: ``embeds`` in the compute dtype, or the
     embedded ``tokens``."""
     if "embeds" in batch:
         return batch["embeds"].to(cfg.cdtype())
-    return embed(params["embed"], batch["tokens"], cfg)
+    return embed(params["embed"], batch["tokens"], cfg, axis_info)
 
 
-def _ce(params, h: torch.Tensor, shard: "_Shard", cfg: ModelConfig):
+def _ce(params, h: torch.Tensor, shard: "_Shard", cfg: ModelConfig, axis_info: Optional[AxisInfo] = None):
     """(ce, acc) of the f32 tied unembedding of ``h`` against the shard's
-    labels: the rank's shares of the batch's mean under an axis_info."""
-    return cross_entropy(unembed(params["embed"], h, cfg), shard.batch["labels"], cfg.vocab_size, shard.denom)
+    labels: the rank's shares of the batch's mean under an axis_info (with
+    a vocab-split table, vocab-parallel: each rank's logits stay its own)."""
+    va = vocab_axes(params["embed"], cfg, axis_info)
+    logits = unembed(params["embed"], h, cfg, axis_info, gather=False)
+    return cross_entropy(logits, shard.batch["labels"], cfg.vocab_size, shard.denom, va,
+                         axis_info.mesh if va else None)
+
+
+def _train_layers(specs, axis_info: Optional[AxisInfo], lead: int = 1):
+    """``(specs of one layer, gather)`` for a stacked subtree of ``params``:
+    ``gather(layer)`` is the layer's weights as the training body uses
+    them (:func:`_gathered_layer`), called inside the remat region."""
+    ls = specs and shd.layer_specs(specs, lead)
+    return lambda lp: _gathered_layer(lp, ls, axis_info)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -477,7 +499,7 @@ def _decoder_lm(cfg: ModelConfig) -> Model:
         dtype) the block weights and the final norm are stored in it, the
         MoE router excepted, so that :func:`serving_params` copies nothing;
         the values are those of the default init cast to ``dtype``. With
-        ``axis_info``, this rank's blocks of the serving layout."""
+        ``axis_info``, this rank's blocks of the ``"jax"`` layout."""
         gen = _generator(seed, device)
         specs = _init_specs(axis_info, cfg)
         table = embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.pdtype())
@@ -511,7 +533,7 @@ def _decoder_lm(cfg: ModelConfig) -> Model:
         S = h.shape[1]
         pages = []
         for i in range(cfg.n_layers):
-            lp = _prefill_layer(_layer(params["blocks"], i), specs and shd.layer_specs(specs["blocks"]), axis_info)
+            lp = _gathered_layer(_layer(params["blocks"], i), specs and shd.layer_specs(specs["blocks"]), axis_info)
             h, _, (k, v) = B.block_apply(lp, h, cfg, axis_info, return_kv=True, impl=impl,
                                          local_batch=rows is not None)
             del lp
@@ -547,11 +569,14 @@ def _decoder_lm(cfg: ModelConfig) -> Model:
         averages its aux over the batch axes, of which the rank takes its
         share, so that the sum over the batch axes counts it once."""
         impl = _train_impl(cfg, impl)
+        specs = _held(params, cfg, axis_info)
         shard = _shard_batch(batch, axis_info)
-        h = _batch_h(params, shard.batch, cfg)
-        body = lambda p, x: B.block_apply(p, x, cfg, axis_info, impl=impl, local_batch=shard.local)  # noqa: E731
+        h = _batch_h(params, shard.batch, cfg, axis_info)
+        layer = _train_layers(specs and specs["blocks"], axis_info)
+        body = lambda p, x: B.block_apply(layer(p), x, cfg, axis_info, impl=impl,  # noqa: E731
+                                          local_batch=shard.local)
         h, aux = B.scan_apply(B.unstack(params["blocks"], cfg.n_layers), h, body, cfg)
-        ce, acc = _ce(params, rmsnorm(h, params["ln_f"]), shard, cfg)
+        ce, acc = _ce(params, rmsnorm(h, _whole_norm(params["ln_f"], axis_info, cfg)), shard, cfg, axis_info)
         aux = shard.share(aux)
         return ce + MOE_AUX_WEIGHT * aux, {"ce": ce, "aux": aux, "acc": acc}
 
@@ -559,7 +584,7 @@ def _decoder_lm(cfg: ModelConfig) -> Model:
 
 
 # ================================ pure SSM (mamba2) ================================
-def _ssm_prefill_layer(lp, h, states, i: int, cfg: ModelConfig, axis_info=None):
+def _ssm_gathered_layer(lp, h, states, i: int, cfg: ModelConfig, axis_info=None):
     """Mamba2 layer ``i`` over the whole sequence; its final state and conv
     tail (the JAX package's ``_ssm_forward_with_state``) go into the stacked
     ``states``."""
@@ -605,8 +630,8 @@ def _ssm_lm(cfg: ModelConfig) -> Model:
         Bb, S = h.shape[:2]
         states = ssm_mod.init_ssm_state(cfg, Bb, cfg.n_layers, device=h.device)
         for i in range(cfg.n_layers):
-            lp = _prefill_layer(_layer(params["blocks"], i), specs and shd.layer_specs(specs["blocks"]), axis_info)
-            h = _ssm_prefill_layer(lp, h, states, i, cfg, axis_info)
+            lp = _gathered_layer(_layer(params["blocks"], i), specs and shd.layer_specs(specs["blocks"]), axis_info)
+            h = _ssm_gathered_layer(lp, h, states, i, cfg, axis_info)
             del lp
         h = rmsnorm(h, _whole_norm(params["ln_f"], axis_info, cfg))
         logits = unembed(params["embed"], h[:, -1:], cfg, axis_info)[:, 0]
@@ -631,11 +656,13 @@ def _ssm_lm(cfg: ModelConfig) -> Model:
         under ``axis_info``). No attention: ``impl`` is checked for the
         common signature."""
         _train_impl(cfg, impl)
+        specs = _held(params, cfg, axis_info)
         shard = _shard_batch(batch, axis_info)
-        h = _batch_h(params, shard.batch, cfg)
-        body = lambda p, x: (B.ssm_block_apply(p, x, cfg), _no_aux(x))  # noqa: E731
+        h = _batch_h(params, shard.batch, cfg, axis_info)
+        layer = _train_layers(specs and specs["blocks"], axis_info)
+        body = lambda p, x: (B.ssm_block_apply(layer(p), x, cfg, axis_info=axis_info), _no_aux(x))  # noqa: E731
         h, _ = B.scan_apply(B.unstack(params["blocks"], cfg.n_layers), h, body, cfg)
-        ce, acc = _ce(params, rmsnorm(h, params["ln_f"]), shard, cfg)
+        ce, acc = _ce(params, rmsnorm(h, _whole_norm(params["ln_f"], axis_info, cfg)), shard, cfg, axis_info)
         return ce, {"ce": ce, "acc": acc}
 
     return Model(init, prefill, decode_step, init_cache, train_loss)
@@ -688,13 +715,13 @@ def _hybrid_lm(cfg: ModelConfig) -> Model:
         Bb, S = h.shape[:2]
         states = ssm_mod.init_ssm_state(cfg, Bb, cfg.n_layers, device=h.device)
         mamba_specs = specs and shd.layer_specs(specs["mamba"], lead=2)
-        shared = _prefill_layer(params["shared_attn"], specs and specs["shared_attn"], axis_info)
+        shared = _gathered_layer(params["shared_attn"], specs and specs["shared_attn"], axis_info)
         pages = []
         for g in range(n_groups):
             group = _layer(params["mamba"], g)
             for j in range(per_group):
-                lp = _prefill_layer(_layer(group, j), mamba_specs, axis_info)
-                h = _ssm_prefill_layer(lp, h, states, g * per_group + j, cfg, axis_info)
+                lp = _gathered_layer(_layer(group, j), mamba_specs, axis_info)
+                h = _ssm_gathered_layer(lp, h, states, g * per_group + j, cfg, axis_info)
                 del lp
             h, _, (k, v) = B.block_apply(shared, h, cfg, axis_info, return_kv=True, impl=impl,
                                          local_batch=rows is not None)
@@ -732,16 +759,20 @@ def _hybrid_lm(cfg: ModelConfig) -> Model:
         shared block under its own checkpoint; metrics ``ce``, ``acc`` (the
         rank's shares under ``axis_info``)."""
         impl = _train_impl(cfg, impl)
+        specs = _held(params, cfg, axis_info)
         shard = _shard_batch(batch, axis_info)
-        h = _batch_h(params, shard.batch, cfg)
+        h = _batch_h(params, shard.batch, cfg, axis_info)
         flat = _tree_map(lambda _, t: t.reshape(cfg.n_layers, *t.shape[2:]), params["mamba"])
         mamba = B.unstack(flat, cfg.n_layers)
-        ssm_body = lambda p, x: (B.ssm_block_apply(p, x, cfg), _no_aux(x))  # noqa: E731
-        shared = B.checkpoint_wrap(lambda p, x: B.block_apply(p, x, cfg, impl=impl), cfg)
+        layer = _train_layers(specs and specs["mamba"], axis_info, lead=2)
+        ssm_body = lambda p, x: (B.ssm_block_apply(layer(p), x, cfg, axis_info=axis_info), _no_aux(x))  # noqa: E731
+        shared_layer = _train_layers(specs and specs["shared_attn"], axis_info, lead=0)
+        shared = B.checkpoint_wrap(lambda p, x: B.block_apply(shared_layer(p), x, cfg, axis_info, impl=impl,
+                                                              local_batch=shard.local), cfg)
         for g in range(n_groups):
             h, _ = B.scan_apply(mamba[g * per_group:(g + 1) * per_group], h, ssm_body, cfg)
             h, _ = shared(params["shared_attn"], h)
-        ce, acc = _ce(params, rmsnorm(h, params["ln_f"]), shard, cfg)
+        ce, acc = _ce(params, rmsnorm(h, _whole_norm(params["ln_f"], axis_info, cfg)), shard, cfg, axis_info)
         return ce, {"ce": ce, "acc": acc}
 
     return Model(init, prefill, decode_step, init_cache, train_loss)
@@ -799,7 +830,7 @@ def _encdec_lm(cfg: ModelConfig) -> Model:
         inputs = _take_rows(inputs, rows)
         h = inputs["enc_embeds"].to(cfg.cdtype())
         for i in range(n_enc):
-            lp = _prefill_layer(_layer(params["encoder"], i), specs and shd.layer_specs(specs["encoder"]), axis_info)
+            lp = _gathered_layer(_layer(params["encoder"], i), specs and shd.layer_specs(specs["encoder"]), axis_info)
             h, _ = B.block_apply(lp, h, cfg, axis_info, causal=False, impl=impl, local_batch=rows is not None)
             del lp
         enc_out = rmsnorm(h, _whole_norm(params["ln_enc"], axis_info, cfg))
@@ -810,7 +841,7 @@ def _encdec_lm(cfg: ModelConfig) -> Model:
             h = embed(params["embed"], tokens, cfg, axis_info)
         cross, pages = [], []
         for i in range(n_dec):
-            lp = _prefill_layer(_layer(params["decoder"], i), specs and shd.layer_specs(specs["decoder"]), axis_info)
+            lp = _gathered_layer(_layer(params["decoder"], i), specs and shd.layer_specs(specs["decoder"]), axis_info)
             k, v = (attn.project(enc_out, lp["cross"][n], cfg.cdtype()) for n in ("wk", "wv"))
             if axis_info is not None and k.shape[2] != cfg.n_kv_heads:  # every kv head, for the cache
                 k, v = (t.movedim(0, 2) for t in collectives.regather_many(
@@ -858,16 +889,20 @@ def _encdec_lm(cfg: ModelConfig) -> Model:
         ``batch["tokens"]``, each decoder layer under its own checkpoint;
         metrics ``ce``, ``acc`` (the rank's shares under ``axis_info``)."""
         impl = _train_impl(cfg, impl)
+        specs = _held(params, cfg, axis_info)
         shard = _shard_batch(batch, axis_info)
         batch = shard.batch
-        enc = lambda p, x: B.block_apply(p, x, cfg, causal=False, impl=impl)  # noqa: E731
+        enc_layer = _train_layers(specs and specs["encoder"], axis_info)
+        dec_layer = _train_layers(specs and specs["decoder"], axis_info)
+        enc = lambda p, x: B.block_apply(enc_layer(p), x, cfg, axis_info, causal=False, impl=impl)  # noqa: E731
         h, _ = B.scan_apply(B.unstack(params["encoder"], n_enc), batch["enc_embeds"].to(cfg.cdtype()), enc, cfg)
-        enc_out = rmsnorm(h, params["ln_enc"])
-        dec = B.checkpoint_wrap(lambda p, x: B.dec_block_apply(p, x, enc_out, cfg, impl=impl)[0], cfg)
-        h = embed(params["embed"], batch["tokens"], cfg)
+        enc_out = rmsnorm(h, _whole_norm(params["ln_enc"], axis_info, cfg))
+        dec = B.checkpoint_wrap(lambda p, x: B.dec_block_apply(dec_layer(p), x, enc_out, cfg, impl=impl,
+                                                               axis_info=axis_info, return_kv=False)[0], cfg)
+        h = embed(params["embed"], batch["tokens"], cfg, axis_info)
         for p in B.unstack(params["decoder"], n_dec):
             h = dec(p, h)
-        ce, acc = _ce(params, rmsnorm(h, params["ln_dec"]), shard, cfg)
+        ce, acc = _ce(params, rmsnorm(h, _whole_norm(params["ln_dec"], axis_info, cfg)), shard, cfg, axis_info)
         return ce, {"ce": ce, "acc": acc}
 
     return Model(init, prefill, decode_step, init_cache, train_loss)

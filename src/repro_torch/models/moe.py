@@ -24,9 +24,11 @@ model axis. Tokens are split over the batch axes when they divide them
 batches), and the output is regathered on every rank. In training and
 prefill (``local_batch=True``) the tokens are already this rank's data
 shard: it routes all of them, and the output is only summed over the model
-axis.
+axis. There the ``"jax"`` layout's ``data`` blocks of the router and the
+experts have been gathered with the layer, so the weights' ``embed`` dims
+are whole.
 
-In decode under the serving layout the expert weights' and the router's
+In decode in the ``"jax"`` layout the expert weights' and the router's
 ``embed`` dims are this rank's block over ``data`` too, and no weight
 leaves its rank: every rank routes every token, in the groups the JAX
 package routes them in (one a batch shard: capacity and ranking count a
@@ -183,7 +185,7 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisI
     replicated). With ``local_batch`` the ``x`` given is this rank's data
     shard already (training, prefill): all of it is routed, and the output
     is only summed over the model axis. Where the weights' ``embed`` dims
-    are blocks over ``data`` (decode in the serving layout), every rank
+    are blocks over ``data`` (decode in the ``"jax"`` layout), every rank
     routes every token (:func:`_moe_embed_split`)."""
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
@@ -227,7 +229,7 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisI
 
 def _moe_embed_split(params, xf: torch.Tensor, cfg: ModelConfig, axis_info: AxisInfo, first: int, n_local: int,
                      local_batch: bool):
-    """The serving layout's MoE (module docstring): ``xf`` (T, d) whole on
+    """Decode's MoE in the ``"jax"`` layout (module docstring): ``xf`` (T, d) whole on
     every rank, the router ``(d/data, E)`` and the experts' ``embed`` dims
     blocks over ``data``. Returns (out (T, d), aux)."""
     if local_batch:

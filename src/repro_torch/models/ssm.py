@@ -14,7 +14,7 @@ of shifted multiply-adds (a depthwise ``conv1d`` would sum in another order
 and, in f32 on a card, run in TF32 by default).
 
 Under an ``axis_info`` the projections may be this rank's blocks (the
-serving layout: ``in_proj`` ``(embed -> data, ssm_proj -> model)``,
+``"jax"`` layout: ``in_proj`` ``(embed -> data, ssm_proj -> model)``,
 ``out_proj`` ``(ssm_inner -> model, embed -> data)``). ``in_proj``'s
 columns over the model axis cut across the z / x / B / C / dt pieces, so its
 output is summed over ``data`` and regathered over ``model`` (one
@@ -24,7 +24,10 @@ over heads only after a reshard of those pieces, and the scan is a small
 share of a layer's work next to the projections. ``out_proj`` takes this
 rank's block of the gated output: summed over ``model``, regathered over
 ``data``. The conv taps and bias and the gated norm's scale are used whole
-(the caller regathers them).
+(the caller regathers them). In training the ``data`` blocks are gathered
+with the layer, and the same code differentiates: the regathered output's
+backward takes this rank's block, the gated output's block regathers its
+cotangent (:mod:`repro_torch.parallel.collectives`).
 """
 
 from __future__ import annotations
@@ -214,7 +217,7 @@ def _in_proj(params, x: torch.Tensor, cfg: ModelConfig, axis_info: Optional[Axis
     da = split(w.shape[0], cfg.d_model, FSDP_AXIS)
     pa = split(w.shape[1], 2 * cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state + cfg.ssm_heads,
                axis_info.model_axis)
-    return sharded_products(block_of(x, -1, da, mesh), [w], mesh, sum_axes=da, gather_axes=pa)[0]
+    return sharded_products(block_of(x, -1, da, mesh), [w], mesh, sum_axes=da, out_axes=pa)[0]
 
 
 def _out_proj(params, y: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisInfo]) -> torch.Tensor:
@@ -225,7 +228,7 @@ def _out_proj(params, y: torch.Tensor, cfg: ModelConfig, axis_info: Optional[Axi
     mesh = axis_info.mesh
     ia = split(w.shape[0], cfg.d_inner, axis_info.model_axis)
     da = split(w.shape[1], cfg.d_model, FSDP_AXIS)
-    return sharded_products(block_of(y, -1, ia, mesh), [w], mesh, sum_axes=ia, gather_axes=da)[0]
+    return sharded_products(block_of(y, -1, ia, mesh), [w], mesh, sum_axes=ia, out_axes=da)[0]
 
 
 def ssm_forward(params, x: torch.Tensor, cfg: ModelConfig, *, return_state: bool = False,

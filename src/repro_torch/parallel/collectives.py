@@ -21,17 +21,32 @@ the kernels count their launches).
 above run on a ``clone()``, so a backward pass through them is the identity.
 The training path therefore uses the autograd functions below, each with
 its backward written out for the port's SPMD model of a step: the loss is
-summed over the batch axes (each rank holds its share, and the gradients
-are summed over them at the end of the step) and held once over the model
-axis (its ranks compute the same share, bar the experts they own). So a sum
-over the batch axes is summed again in the backward pass, and a sum over
-the model axis is not:
+summed over the batch axes (each rank holds its share of its rows, and the
+gradients are summed over them) and held once over the model axis (its
+ranks compute the same share, each with its block of the weights, so each
+holds the whole cotangent of every value they all hold). So a gather over
+a batch axis sums the cotangents in its backward, and one over the model
+axis does not:
 
-* :func:`gather_blocks` (the forward of :func:`regather`);
+* :func:`gather_blocks` / :func:`gather_blocks_many` (the forward of
+  :func:`regather`; backward: the cotangents summed over the gathered
+  axes, this rank's block of them). Over ``data`` it is the FSDP gather,
+  its backward the reduce-scatter;
+* :func:`tp_gather` (the forward of :func:`regather_many`, also summing
+  partial products over ``sum_names``; backward: this rank's block, no
+  collective). Over ``model``: an output regathered from the ranks'
+  blocks (the vocab-split logits), or partials summed (``names=()``);
+* :func:`tp_block` (this rank's block of a value every rank holds;
+  backward: the blocks' cotangents regathered), where a replicated
+  activation meets a weight split on its contracting dim;
 * :func:`grad_psum` (the identity; its backward sums the cotangents: the
-  input of a partial product, whose other parts the other ranks compute);
+  input of a product whose output dim is split, whose other parts the
+  other ranks compute);
 * :func:`mean_of_shares` (:func:`pmean`; its backward sums the cotangents
   and divides).
+
+Decode keeps its rows replicated over every axis, so there every axis is
+one of the model axis's kind; it runs without autograd.
 
 :func:`psum_` sums a list of tensors in place, a few flat buffers at a
 time: the gradient all-reduce.
@@ -144,17 +159,30 @@ def regather_many(blocks: Sequence[torch.Tensor], names: AxisNames, mesh: Mesh,
 
 
 # ------------------------------ training: collectives with their backward ------------------------------
-class _GatherBlocks(torch.autograd.Function):
+def _take(g: torch.Tensor, dim: int, names: tuple, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of ``g`` along ``dim`` over ``names`` (a view)."""
+    if not names:
+        return g
+    b = g.shape[dim] // axis_size(names, mesh)
+    return g.narrow(dim, axis_index(names, mesh) * b, b)
+
+
+class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, block, names, sum_names, mesh):
-        ctx.names, ctx.mesh, ctx.rows = names, mesh, block.shape[0]
-        return regather(block, names, mesh, sum_names)
+    def forward(ctx, names, sum_names, grad_sum, mesh, *blocks):
+        ctx.names, ctx.grad_sum, ctx.mesh = names, grad_sum, mesh
+        return tuple(regather_many(blocks, names, mesh, sum_names))
 
     @staticmethod
-    def backward(ctx, g):
-        i = axis_index(ctx.names, ctx.mesh) if ctx.names else 0
-        g = psum(g, ctx.names, ctx.mesh)
-        return g[i * ctx.rows:(i + 1) * ctx.rows], None, None, None
+    def backward(ctx, *gs):  # an output that reached no loss arrives as zeros (materialized)
+        if ctx.grad_sum and axis_size(ctx.grad_sum, ctx.mesh) > 1:
+            flat = psum(torch.cat([g.reshape(-1) for g in gs]) if len(gs) > 1 else gs[0], ctx.grad_sum, ctx.mesh)
+            out, k = [], 0
+            for g in gs:
+                out.append(flat.reshape(-1)[k:k + g.numel()].view(g.shape))
+                k += g.numel()
+            gs = out
+        return (None, None, None, None, *(_take(g, 0, ctx.names, ctx.mesh) for g in gs))
 
 
 def gather_blocks(block: torch.Tensor, names: AxisNames, mesh: Mesh, sum_names: AxisNames = ()) -> torch.Tensor:
@@ -162,7 +190,56 @@ def gather_blocks(block: torch.Tensor, names: AxisNames, mesh: Mesh, sum_names: 
     ``names`` (every rank's loss share reads every block), this rank's block
     of them; over ``sum_names`` the identity (the ranks there hold one
     loss, each the whole cotangent)."""
-    return _GatherBlocks.apply(block, _axes(names), _axes(sum_names), mesh)
+    return gather_blocks_many([block], names, mesh, sum_names)[0]
+
+
+def gather_blocks_many(blocks: Sequence[torch.Tensor], names: AxisNames, mesh: Mesh,
+                       sum_names: AxisNames = ()) -> List[torch.Tensor]:
+    """:func:`gather_blocks` of several blocks (one dtype) in one all-reduce,
+    and their cotangents summed in one all-reduce in the backward: a
+    layer's FSDP gather over ``data`` and its reduce-scatter."""
+    names, sum_names = _axes(names), _axes(sum_names)
+    if axis_size(names + sum_names, mesh) == 1:
+        return list(blocks)
+    return list(_Gather.apply(names, sum_names, names, mesh, *blocks))
+
+
+def tp_gather(blocks: Sequence[torch.Tensor], names: AxisNames, mesh: Mesh,
+              sum_names: AxisNames = ()) -> List[torch.Tensor]:
+    """:func:`regather_many` under autograd, over axes whose ranks hold one
+    loss between them (the model axis): the whole of each block's dim 0
+    over ``names``, summed over ``sum_names`` (partial products), in one
+    all-reduce. Backward: this rank's block of each cotangent, with no
+    collective (every rank holds the whole cotangent)."""
+    names, sum_names = _axes(names), _axes(sum_names)
+    if axis_size(names + sum_names, mesh) == 1:
+        return list(blocks)
+    return list(_Gather.apply(names, sum_names, (), mesh, *blocks))
+
+
+class _TpBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, names, mesh):
+        ctx.dim, ctx.names, ctx.mesh = dim, names, mesh
+        return _take(x, dim, names, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        whole = regather_many([g.movedim(ctx.dim, 0)], ctx.names, ctx.mesh)[0]
+        return whole.movedim(0, ctx.dim), None, None, None
+
+
+def tp_block(x: torch.Tensor, dim: int, names: AxisNames, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over ``names``, for an ``x``
+    that every rank over ``names`` holds whole (a replicated activation
+    meeting a weight split on its contracting dim). Backward: each rank
+    holds the cotangent of its block only, so the blocks are regathered
+    (one all-reduce): every rank gets the whole cotangent of ``x``. ``x``
+    itself when ``names`` is empty."""
+    names = _axes(names)
+    if not names or axis_size(names, mesh) == 1:
+        return x
+    return _TpBlock.apply(x, dim % x.ndim, names, mesh)
 
 
 class _GradPsum(torch.autograd.Function):

@@ -12,14 +12,18 @@ the JAX package does: ``logical_rules``, ``spec_for``, ``param_shardings``,
 The port runs one process per rank, and lays the parameters out in one of
 two layouts (:func:`param_specs`):
 
-* **serving** (``prefill``/``decode_step``): every leaf is this rank's
-  block under ``param_shardings``, the JAX package's own layout (heads,
-  ffn, vocab and the SSM projections over ``model``, ``embed`` over
-  ``data``, the experts over ``model``), with its fall-back to replication
-  where a dim does not divide. The model code reads which dims a leaf
-  holds whole and which as a block from its shape (:func:`held_specs`);
-* **train** (``train_loss`` and the train step): the expert weights over
-  the model axis, every other leaf replicated (:func:`local_param_specs`).
+* ``"jax"``: every leaf is this rank's block under ``param_shardings``, the
+  JAX package's own layout (heads, ffn, vocab and the SSM projections over
+  ``model``, ``embed`` over ``data``, the experts over ``model``), with its
+  fall-back to replication where a dim does not divide. Serving, the
+  training launcher and the dry run use it;
+* ``"experts"``: the expert weights over the model axis, every other leaf
+  replicated (:func:`local_param_specs`), the layout the port trained in
+  first.
+
+The model code, in training and serving alike, reads which dims a leaf
+holds whole and which as a block from its shape (:func:`held_specs`), so
+either layout (or a mix) runs through the same code.
 
 The KV page pools and int8 scales are striped over every axis
 (:func:`shard_cache`: ``cache_shardings``' entries for them). The SSM
@@ -40,8 +44,8 @@ from repro_torch.parallel.axisinfo import AxisInfo, Mesh
 
 POOL_LEAVES = ("pool_k", "pool_v", "scale_k", "scale_v")
 FSDP_AXIS = "data"  # the mesh axis of the ``embed`` dims (FSDP within a pod)
-# leaves the serving path uses whole: the norm scales, the conv taps and bias,
-# the gated norm's scale (a few KB a layer); regathered before use
+# leaves used whole: the norm scales, the conv taps and bias, the gated norm's
+# scale (a few KB a layer); regathered before use
 WHOLE_AT_USE = ("ln1", "ln2", "ln3", "ln", "ln_f", "ln_enc", "ln_dec", "conv_w", "conv_b", "norm")
 
 
@@ -197,33 +201,34 @@ def gather_leaf(x, spec: P, axis_info: AxisInfo):
 
 
 def gather_params(params, cfg: ModelConfig, axis_info: AxisInfo):
-    """The full params (or moments) on every rank, from this rank's
-    (:func:`shard_params`'s inverse: the expert weights regathered over the
-    model axis); every rank calls it."""
-    from repro_torch.convert import param_shapes
-
-    specs = local_param_specs(param_shapes(cfg), cfg, axis_info)  # the full shapes decide the specs
+    """The full params (or moments) on every rank, from this rank's blocks
+    in either layout (:func:`held_specs`; :func:`shard_params`'s inverse);
+    every rank calls it."""
+    specs = held_specs(params, cfg, axis_info)
     return _map(lambda _, x, s: gather_leaf(x, s, axis_info) if len(s) else x, params, specs)
 
 
-def serving_specs(cfg: ModelConfig, axis_info: AxisInfo):
-    """The serving layout: ``param_shardings`` of the full param tree."""
+def jax_specs(cfg: ModelConfig, axis_info: AxisInfo):
+    """The ``"jax"`` layout: ``param_shardings`` of the full param tree."""
     from repro_torch.convert import param_shapes
     from repro_torch.models.lm import param_axes
 
     return param_shardings(param_shapes(cfg), param_axes(cfg), cfg, axis_info)
 
 
-def param_specs(cfg: ModelConfig, axis_info: AxisInfo, layout: str = "train"):
-    """The spec tree of a layout: ``"train"`` (:func:`local_param_specs`)
-    or ``"serving"`` (:func:`serving_specs`)."""
+LAYOUTS = ("jax", "experts")
+
+
+def param_specs(cfg: ModelConfig, axis_info: AxisInfo, layout: str = "experts"):
+    """The spec tree of a layout: ``"jax"`` (:func:`jax_specs`) or
+    ``"experts"`` (:func:`local_param_specs`)."""
     from repro_torch.convert import param_shapes
 
-    if layout == "serving":
-        return serving_specs(cfg, axis_info)
-    if layout == "train":
+    if layout == "jax":
+        return jax_specs(cfg, axis_info)
+    if layout == "experts":
         return local_param_specs(param_shapes(cfg), cfg, axis_info)
-    raise ValueError(f"unknown layout {layout!r}: 'train' or 'serving'")
+    raise ValueError(f"unknown layout {layout!r}: one of {LAYOUTS}")
 
 
 def held_specs(params, cfg: ModelConfig, axis_info: AxisInfo):
@@ -250,7 +255,7 @@ def held_specs(params, cfg: ModelConfig, axis_info: AxisInfo):
                                  f"nor this rank's block under {spec}")
         return P(*_trim(entries))
 
-    return _map(one, params, param_shapes(cfg), serving_specs(cfg, axis_info))
+    return _map(one, params, param_shapes(cfg), jax_specs(cfg, axis_info))
 
 
 def layer_specs(specs, lead: int = 1):
@@ -261,8 +266,12 @@ def layer_specs(specs, lead: int = 1):
 def gather_over(tree, specs, axis_info: AxisInfo, axes, keys=None):
     """``(tree, specs)`` with each leaf (or each leaf whose key is in
     ``keys``) regathered over every mesh axis of ``axes`` that its spec
-    names, and those entries cleared: one all-reduce per axis and dtype
-    (:func:`repro_torch.parallel.collectives.regather_many`)."""
+    names, and those entries cleared: one all-reduce per axis and dtype.
+    Under autograd a batch axis gathers with
+    :func:`~repro_torch.parallel.collectives.gather_blocks_many` (its
+    backward sums the cotangents over the axis: FSDP's reduce-scatter) and
+    the model axis with :func:`~repro_torch.parallel.collectives.tp_gather`
+    (its backward takes this rank's block)."""
     from repro_torch.parallel import collectives
 
     leaves, held = {}, {}
@@ -272,13 +281,14 @@ def gather_over(tree, specs, axis_info: AxisInfo, axes, keys=None):
 
     _map(collect, tree, specs)
     for axis in axes:
+        gather = collectives.gather_blocks_many if axis in axis_info.batch_axes else collectives.tp_gather
         jobs: Dict[Any, list] = {}
         for path, s in held.items():
             if (keys is None or path[-1] in keys) and axis in s:
                 jobs.setdefault(leaves[path].dtype, []).append((path, s.index(axis)))
         for job in jobs.values():
             blocks = [leaves[p].movedim(d, 0) for p, d in job]
-            for (p, d), whole in zip(job, collectives.regather_many(blocks, axis, axis_info.mesh)):
+            for (p, d), whole in zip(job, gather(blocks, axis, axis_info.mesh)):
                 leaves[p] = whole.movedim(0, d)
                 held[p][d] = None
     return (_map(lambda path, _: leaves[path], tree),
@@ -315,13 +325,13 @@ def local_param_specs(params, cfg: ModelConfig, axis_info: AxisInfo):
     return _map(one, specs, axes)
 
 
-def shard_params(params, cfg: ModelConfig, axis_info: AxisInfo, copy: bool = False, layout: str = "train"):
+def shard_params(params, cfg: ModelConfig, axis_info: AxisInfo, copy: bool = False, layout: str = "experts"):
     """This rank's params in ``layout`` (:func:`param_specs`): for
-    ``"train"`` every leaf replicated but the expert weights, which keep
-    this rank's experts (or ffn columns); for ``"serving"`` every leaf's
+    ``"experts"`` every leaf replicated but the expert weights, which keep
+    this rank's experts (or ffn columns); for ``"jax"`` every leaf's
     ``param_shardings`` block. Works on tensors and on numpy arrays. The
     blocks are views unless ``copy`` (a view keeps the whole leaf alive)."""
-    if layout == "train":  # from the shapes given: a caller may hand in one layer's subtree
+    if layout == "experts":  # from the shapes given: a caller may hand in one layer's subtree
         specs = local_param_specs(params, cfg, axis_info)
     else:
         specs = param_specs(cfg, axis_info, layout)

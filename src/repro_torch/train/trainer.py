@@ -31,26 +31,34 @@ def n_microbatches(batch_rows: int, grad_accum: int, n_batch_shards: int = 1) ->
     return A
 
 
-def reduce_gradients(grads: List[torch.Tensor], axis_info: AxisInfo) -> None:
+def reduce_gradients(grads: List[torch.Tensor], axis_info: AxisInfo, held: List[tuple]) -> None:
     """Sum this rank's f32 gradients over the batch axes, in place, in a few
-    flat buffers (:func:`collectives.psum_`): every leaf, the experts'
-    blocks too (their data replicas). The sum is the one GSPMD inserts."""
-    collectives.psum_(grads, axis_info.batch_axes, axis_info.mesh)
+    flat buffers (:func:`collectives.psum_`): each leaf over the batch axes
+    it is not split over (``held``, from :func:`held_axes`). A leaf split
+    over ``data`` was summed there by its FSDP gather's backward (the
+    reduce-scatter), so it is summed over ``pod`` only, where the mesh has
+    one; a second sum would double it. The sums are the ones GSPMD
+    inserts."""
+    groups: Dict[tuple, List[torch.Tensor]] = {}
+    for g, axes in zip(grads, held):
+        groups.setdefault(tuple(a for a in axis_info.batch_axes if a not in axes), []).append(g)
+    for axes, group in groups.items():
+        if axes:
+            collectives.psum_(group, axes, axis_info.mesh)
 
 
-def _sharded_axes(cfg: ModelConfig, axis_info: AxisInfo) -> List[tuple]:
-    """For each leaf in :func:`leaves` order, the mesh axes it is split
-    over on this rank (empty: replicated)."""
-    from repro_torch.convert import param_shapes
-    from repro_torch.parallel.sharding import local_param_specs
+def held_axes(params, cfg: ModelConfig, axis_info: AxisInfo) -> List[tuple]:
+    """For each leaf of ``params`` in :func:`leaves` order, the mesh axes it
+    is split over on this rank (empty: replicated), in mesh order, read from
+    its shape (:func:`repro_torch.parallel.sharding.held_specs`)."""
+    from repro_torch.parallel.sharding import held_specs
 
-    specs = local_param_specs(param_shapes(cfg), cfg, axis_info)
     out = []
-    for spec in leaves(specs):
+    for spec in leaves(held_specs(params, cfg, axis_info)):
         axes = []
         for e in spec:
             axes += [] if e is None else [e] if isinstance(e, str) else list(e)
-        out.append(tuple(axes))
+        out.append(axis_info.mesh.ordered(axes))
     return out
 
 
@@ -84,20 +92,23 @@ def make_train_step(model, cfg: ModelConfig, opt_cfg: AdamWConfig, axis_info: Op
 
     Across ranks (``axis_info``): ``batch`` is the global batch on every
     rank, as the JAX package's jitted step takes it, and ``params`` this
-    rank's (:func:`repro_torch.parallel.sharding.shard_params`: the experts
-    split over the model axis). Each microbatch is a slice of the global
-    batch, and each rank computes on its block of the microbatch's rows
-    (``train_loss(axis_info=)``: rows ``a*B/A + i*B/(A*n) ...`` for rank
-    ``i`` of ``n`` batch shards). After the accumulation every gradient is
-    summed over the batch axes (:func:`reduce_gradients`), the loss and
-    metrics too (one all-reduce); the norm that clips the update counts
-    each expert once. Replicated leaves then end the step equal on every
-    rank, bit for bit, and expert leaves equal over the batch axes.
-    ``param_shardings`` is taken for the JAX package's signature, where it
-    is a layout hint with no numeric effect; the port's layout is
-    :func:`repro_torch.parallel.sharding.local_param_specs`."""
+    rank's blocks in either layout of
+    :mod:`repro_torch.parallel.sharding` (the JAX package's
+    ``param_shardings``, or the experts alone split over the model axis);
+    the moments are blocks of the same shapes. Each microbatch is a slice
+    of the global batch, and each rank computes on its block of the
+    microbatch's rows (``train_loss(axis_info=)``: rows ``a*B/A +
+    i*B/(A*n) ...`` for rank ``i`` of ``n`` batch shards), gathering each
+    layer's ``data`` blocks in its forward and reduce-scattering their
+    gradients in its backward. After the accumulation each gradient is
+    summed over the batch axes it is not split over
+    (:func:`reduce_gradients`), the loss and metrics over every batch axis
+    (one all-reduce); the norm that clips the update counts each block
+    once. Leaves replicated over an axis then end the step equal over it,
+    bit for bit. ``param_shardings`` is taken for the JAX package's
+    signature, where it is a layout hint with no numeric effect; the port
+    reads the layout from the leaves' shapes (:func:`held_axes`)."""
     n_shards = axis_info.n_batch_shards if axis_info is not None else 1
-    split = _sharded_axes(cfg, axis_info) if axis_info is not None else None
 
     def grad_of(params, batch):
         tracked = _requires_grad(params)
@@ -125,7 +136,8 @@ def make_train_step(model, cfg: ModelConfig, opt_cfg: AdamWConfig, axis_info: Op
             metrics = {k: v / a for k, v in metrics.items()}
         gnorm = None
         if axis_info is not None:
-            reduce_gradients(grads, axis_info)
+            split = held_axes(params, cfg, axis_info)
+            reduce_gradients(grads, axis_info, split)
             names = sorted(metrics)
             total = collectives.psum(torch.stack([loss] + [metrics[k].float() for k in names]),
                                      axis_info.batch_axes, axis_info.mesh)

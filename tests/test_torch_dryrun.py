@@ -11,12 +11,14 @@ JAX loss and gradient's (AdamW has no matmul; the SSD backward differs in a
 few small matmuls). Also held: the input specs and
 ``concrete_batch`` draws, the counter on hand-counted calls, a sharded cell
 on a fake 2 x 2 group against the unsharded one, and one full-size cell.
-The serving layout on a fake 2 x 2 group (B=4, S=64): a prefill's and a
-decode step's argument bytes are JAX's per device (its jitted calls with
-``in_shardings`` from ``param_shardings``, compiled in a subprocess with 4
-forced host devices), a decode step's but for the differences the port
-keeps on purpose, stated exactly; and a prefill repeats no other rank's
-matmuls (its ``useful_flops_ratio`` at least 0.9).
+The JAX package's layout on a fake 2 x 2 group (B=4, S=64): a prefill's,
+a decode step's and a train step's argument bytes are JAX's per device
+(its jitted calls with ``in_shardings`` from ``param_shardings``, compiled
+in a subprocess with 4 forced host devices; the train step's its shards'
+bytes), a decode step's and a train step's but for the differences the
+port keeps on purpose, stated exactly;
+and a prefill repeats no other rank's matmuls (its ``useful_flops_ratio``
+at least 0.9).
 """
 
 import dataclasses
@@ -195,21 +197,45 @@ def test_peak_bytes_of_a_chain_of_temporaries():
 
 # ------------------------------ a sharded cell on fake ranks ------------------------------
 def test_sharded_train_cell_on_a_fake_2x2_group():
-    """Rank 0 of (data 2, model 2) trains on half the global batch: its
-    FLOPs times the two batch shards are the unsharded step's. Its
-    all-reduces carry every f32 gradient and the four summed metrics, as
-    ``collectives.stats`` counts them."""
+    """Rank 0 of (data 2, model 2) trains in the JAX package's layout on
+    half the global batch, its heads, ffn and vocab a model rank's half:
+    its FLOPs times the four ranks are the unsharded step's. Its
+    all-reduces are the hand count below, as ``collectives.stats`` counts
+    them."""
     cfg = get_config("llama3_2-1b").smoke()
     whole = dryrun.plan(cfg, "train", 4, S)
     before = dict(collectives.stats)
     with dryrun.fake_world(4):
         ai = make_axis_info(make_mesh((2, 2), ("data", "model")))
         rec = dryrun.plan(cfg, "train", 4, S, ai)
-    assert rec["hlo_flops_per_device"] * ai.n_batch_shards == whole["hlo_flops_per_device"]
-    assert rec["collectives"]["all-reduce"] == 4 * _numel(param_shapes(cfg)) + 4 * 4
+    assert rec["hlo_flops_per_device"] * ai.mesh.size == whole["hlo_flops_per_device"]
+    assert rec["collectives"]["all-reduce"] == _train_all_reduce_bytes(cfg, 4, S) > 0
     assert rec["collectives"]["all-reduce"] == collectives.stats["bytes"] - before["bytes"]
     assert rec["collective_count"] == collectives.stats["calls"] - before["calls"]
     assert whole["collective_count"] == 0 and rec["roofline"]["collective_s"] > 0
+
+
+def _train_all_reduce_bytes(cfg, rows: int, seq: int) -> int:
+    """The all-reduce bytes of a dense f32 train step on (data 2, model 2)
+    in the JAX layout, counted by hand: in each microbatch (one row a data
+    shard) the embedding's rows summed over ``model``; each layer's
+    ``data`` blocks gathered (a zero-filled buffer of both blocks) and
+    their gradients summed in the backward; the attention's and the MLP's
+    outputs summed over ``model`` in the forward and their inputs'
+    cotangents in the backward; ``ln_f`` gathered and its gradient summed;
+    the unembedding's input cotangent summed; the vocab-parallel
+    cross-entropy's largest logit a token maximised over ``model``, and its
+    three floats a token gathered from both model ranks. Then the table's
+    gradient over ``data`` (every other leaf is
+    a block over ``data``, reduce-scattered already), the four metrics,
+    and three partial norms (the leaves split over ``data``, ``model`` and
+    both)."""
+    d, f, H, K, hd, V = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.padded_vocab
+    A = 2  # n_microbatches(rows, grad_accum 4, 2 shards)
+    T = rows // A // 2 * seq  # a rank's tokens a microbatch
+    layer = 2 * (d // 2) + (d // 2) * (H // 2 + 2 * (K // 2)) * hd + (H // 2) * hd * (d // 2) + 3 * (d // 2) * (f // 2)
+    per_micro = T * d + cfg.n_layers * (2 * 2 * layer + 4 * T * d) + 2 * d + T * d + T + 2 * 3 * T
+    return 4 * (A * per_micro + (V // 2) * d + 4 + 3)
 
 
 # ------------------------------ full size ------------------------------
@@ -253,10 +279,11 @@ def _jax_serving_args(out_path: str) -> None:
     decode step of each family (smoke, B=4, S=64) on a (data 2, model 2)
     Auto-axis mesh of 4 forced host devices: ``param_shardings``,
     ``batch_shardings`` and ``cache_shardings``, as its dry run lays them."""
-    from jax.sharding import AxisType
+    from jax.sharding import AxisType, NamedSharding, PartitionSpec
 
     from repro.parallel import sharding as jshd
     from repro.parallel.axisinfo import AxisInfo
+    from repro.train import optimizer as jopt
 
     mesh = jax.make_mesh((2, 2), ("data", "model"), axis_types=(AxisType.Auto, AxisType.Auto))
     ai = AxisInfo(mesh, batch_axes=("data",), model_axis="model")
@@ -277,6 +304,13 @@ def _jax_serving_args(out_path: str) -> None:
                                            jshd.batch_shardings(tok, cfg, ai)))
             out[arch] = {"prefill": prefill.lower(params, batch).compile().memory_analysis().argument_size_in_bytes,
                          "decode": decode.lower(params, cache, tok).compile().memory_analysis().argument_size_in_bytes}
+        # the train step's arguments as the JAX launcher lays them (params and moments in
+        # param_shardings, the batch in batch_shardings): each leaf's shard on one device
+        o_shard = {"m": p_shard, "v": p_shard, "step": NamedSharding(mesh, PartitionSpec())}
+        data = jspecs.train_batch_spec(cfg, B4, S)
+        args = (params, jax.eval_shape(jopt.adamw_init, params), data)
+        out[arch]["train"] = sum(int(np.prod(sh.shard_shape(x.shape))) * x.dtype.itemsize for x, sh in zip(
+            jax.tree.leaves(args), jax.tree.leaves((p_shard, o_shard, jshd.batch_shardings(data, cfg, ai)))))
     with open(out_path, "wb") as fh:
         pickle.dump(out, fh)
 
@@ -298,6 +332,7 @@ def serving_cells(tmp_path_factory):
                     cfg = dataclasses.replace(cfg, capacity_factor=1.0)
                 for kind in ("prefill", "decode"):
                     recs[arch, kind] = dryrun.plan(cfg, kind, B4, S, ai)
+                recs[arch, "train"] = dryrun.arguments(cfg, "train", B4, S, ai)
         log, _ = proc.communicate(timeout=120)
     finally:
         proc.kill()
@@ -313,7 +348,7 @@ def _block_numels(cfg):
 
     ai = AxisInfo(Mesh((2, 2), ("data", "model")), ("data",))
     return shd._map(lambda _, shape, spec: int(np.prod(shape)) // 2 ** sum(e is not None for e in spec),
-                    param_shapes(cfg), shd.serving_specs(cfg, ai))
+                    param_shapes(cfg), shd.jax_specs(cfg, ai))
 
 
 def _state_bytes(cfg) -> int:
@@ -322,6 +357,20 @@ def _state_bytes(cfg) -> int:
         return 0
     conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
     return 4 * cfg.n_layers * B4 * (cfg.ssm_heads * cfg.ssm_state * cfg.ssm_headdim + (cfg.ssm_conv - 1) * conv_dim)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_train_argument_bytes_a_rank_equal_jax(arch, serving_cells):
+    """The train step in the JAX package's layout: the params and both
+    AdamW moments a rank holds are JAX's per device, to the byte (each
+    leaf's shard under ``param_shardings``, as the JAX launcher lays them,
+    ``NamedSharding.shard_shape``). The port's step takes the global batch
+    on every rank, as the JAX step's input; a JAX device holds its data
+    shard's half of it: the difference is that half, exactly."""
+    recs, jax_args = serving_cells
+    cfg = get_config(arch).smoke()
+    batch = sum(t.numel() * t.element_size() for t in specs.train_batch_spec(cfg, B4, S).values())
+    assert recs[arch, "train"] == jax_args[arch]["train"] + batch // 2
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])

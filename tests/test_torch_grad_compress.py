@@ -13,11 +13,13 @@ and bf16 leaves), over two steps (the residual fed back), and to the
 properties of ``tests/test_grad_compress.py``'s three tests, ported.
 
 The launcher: ``train(model_parallel=2)`` on a ``(data 2, model 2)`` mesh of
-4 ranks for llama (dense) and mixtral (experts split over the model axis),
-then the step-6 checkpoint restored onto a ``(data 4, model 1)`` mesh equals
-the final params bit for bit (the port of
-``test_distributed_train_smoke_and_elastic_reshard``); llama's sharded
-losses are the single-device launcher's within 1e-4. Last, ``chip_smoke.py``'s
+4 ranks for llama (dense) and mixtral (experts over the model axis), the
+state in the JAX package's layout, then the step-6 checkpoint restored onto
+a ``(data 4, model 1)`` mesh equals the final params bit for bit (the port
+of ``test_distributed_train_smoke_and_elastic_reshard``); llama's sharded
+losses are the single-device launcher's within 1e-4, and its step-3
+checkpoint resumes on the ``(data 4, model 1)`` mesh to the uninterrupted
+run's losses within 1e-4. Last, ``chip_smoke.py``'s
 step 16 end to end at smoke size on 4 CPU ranks.
 """
 
@@ -136,17 +138,43 @@ def _grads_rank(ai, chosen, launch_ref):
             final = shd.gather_params(run["params"], cfg, run["axis_info"])
             ai2 = launch_mesh.make_axis_info(launch_mesh.make_mesh((4, 1), ("data", "model")))
             state = restore_onto_mesh(run["checkpointer"], state_specs(cfg, ai2), ai2, step=6, device="cpu")
+            resumed = _resume_on(run, cfg, ai2, 3) if arch == "llama3_2-1b" else None
         finally:
             cluster.close()
+        restored = {"params": shd.gather_params(state["params"], cfg, ai2),  # its (data 4, model 1) blocks
+                    "m": shd.gather_params(state["opt"]["m"], cfg, ai2)}
         out["launch"][arch] = {
             "losses": run["losses"],
-            "restored_equal": all(torch.equal(a, b) for a, b in zip(_leaves(state["params"]), _leaves(final))),
+            "restored_equal": all(torch.equal(a, b) for a, b in zip(_leaves(restored["params"]), _leaves(final))),
             "moments_equal": all(torch.equal(a, b) for a, b in zip(
-                _leaves(state["opt"]["m"]), _leaves(shd.gather_params(run["opt_state"]["m"], cfg, run["axis_info"])))),
+                _leaves(restored["m"]), _leaves(shd.gather_params(run["opt_state"]["m"], cfg, run["axis_info"])))),
             "step": int(state["opt"]["step"]),
             "checkpoints": None if run["checkpointer"] is None else [c.step for c in run["checkpointer"].checkpoints],
+            "resumed_losses": resumed,
         }
     return out
+
+
+def _resume_on(run, cfg, ai, step: int) -> list:
+    """The launcher's step-``step`` checkpoint (the JAX layout on the run's
+    mesh) restored onto ``ai``'s mesh, and trained from there to the end
+    on the run's batches, with the launcher's config and schedule; the
+    losses of those steps."""
+    from repro_torch.models.lm import build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import make_train_step
+
+    state = restore_onto_mesh(run["checkpointer"], state_specs(cfg, ai), ai, step=step, device="cpu")
+    params, opt_state = state["params"], state["opt"]
+    cfg = dataclasses.replace(cfg, grad_accum=min(cfg.grad_accum, max(LAUNCH["batch"] // 2, 1)))
+    opt_cfg = AdamWConfig(lr=LAUNCH["lr"], total_steps=LAUNCH["steps"], warmup_steps=max(LAUNCH["steps"] // 10, 1))
+    step_fn = make_train_step(build_model(cfg), cfg, opt_cfg, ai)
+    losses = []
+    for s in range(step, LAUNCH["steps"]):
+        batch = {k: torch.from_numpy(v) for k, v in run["pipeline"].batch_at(s).items()}
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+    return losses
 
 
 def _leaves(tree):
@@ -259,6 +287,20 @@ def test_distributed_train_smoke_and_elastic_reshard(arch, runs):
         np.testing.assert_allclose(ranks[0]["launch"][arch]["losses"], single, rtol=1e-4)
 
 
+def test_jax_layout_checkpoint_resumes_on_another_mesh(runs):
+    """The launcher holds the state in the JAX layout (``param_shardings``
+    on the (data 2, model 2) mesh: FSDP over ``data``); its step-3
+    checkpoint, restored onto a (data 4, model 1) mesh, trains steps 3-5
+    on the same batches to the uninterrupted run's losses within 1e-4, the
+    same on every rank."""
+    _, ranks, _ = runs
+    want = ranks[0]["launch"]["llama3_2-1b"]["losses"][3:]
+    for r in ranks:
+        got = r["launch"]["llama3_2-1b"]["resumed_losses"]
+        assert got == ranks[0]["launch"]["llama3_2-1b"]["resumed_losses"]
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
 def test_launcher_joins_the_group_the_environment_names(monkeypatch):
     """Without ``RANK``/``WORLD_SIZE`` or ``COORDINATOR_ADDRESS`` the
     launcher runs as one process."""
@@ -308,4 +350,4 @@ def test_chip_smoke_step16_at_smoke_size(monkeypatch, tmp_path):
             setattr(torch.cuda, n, f)
     assert out["launcher"]["restored_bit_equal"] and out["pod_mean"]["max_err_in_steps"] <= 1
     assert all(n == 0 for r in out["launches"] for n in r.values())
-    assert out["llama"]["grad_allreduce_calls"] == [1] * 3 and max(out["llama"]["loss_rel"]) < 1e-5
+    assert out["llama"]["grad_allreduce_calls"] == [1] * cs.TRAIN_SHARD_STEPS and max(out["llama"]["loss_rel"]) < 1e-5

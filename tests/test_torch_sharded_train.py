@@ -11,20 +11,28 @@ sharded path runs unchanged. ``adamw_update`` is wrapped there, in the
 subprocess only, so that the step also returns the gradients it applied.
 
 The port runs the same step on 4 spawned gloo CPU ranks of a ``(2, 2)``
-mesh, with the JAX package's weights (``params_from_jax(axis_info=)``: each
-rank keeps its experts), for the dense, moe (under full remat, so that the
-collectives run again in the recomputation), ssm, hybrid and audio families
-at smoke width with 2 layers, B = 8 rows of S = 16 tokens, some labels -1
-(padding, unevenly over the rows, so that each share's divisor must be the
-whole microbatch's count), ``grad_accum`` 4 (four microbatches of two rows,
-one row a data shard).
+mesh, with the JAX package's weights, in both of its layouts: the one it
+trained in first (``params_from_jax(axis_info=)``: each rank keeps its
+experts, every other leaf whole) and the JAX package's own
+(``layout="jax"``: every leaf its ``param_shardings`` block, FSDP over
+``data``, tensor-parallel over ``model``), for the dense, moe (under full
+remat, so that the collectives run again in the recomputation), ssm,
+hybrid and audio families at smoke width with 2 layers, B = 8 rows of S =
+16 tokens, some labels -1 (padding, unevenly over the rows, so that each
+share's divisor must be the whole microbatch's count), ``grad_accum`` 4
+(four microbatches of two rows, one row a data shard). The same ranks also
+run llama in the JAX layout on a ``(data 4, model 1)`` mesh (pure FSDP),
+against the JAX step on the same mesh shape.
 
 Held, each within 1e-5: the loss and metrics, every gradient leaf, the
-updated params and the moments (an expert leaf against its block of JAX's);
-replicated leaves bit-equal on every rank, expert leaves bit-equal across
-the data ranks. The MoE layer's sharded gradients (router, tokens, experts;
-aux weight 1, EP with 4 experts and expert-TP with 3) against ``jax.grad``
-through the JAX package's ``moe_ffn(axis_info)``, also within 1e-5.
+updated params and the moments (each leaf against its block of JAX's);
+each leaf bit-equal on the ranks that hold the same block; in the JAX
+layout the bytes a rank holds, to the byte JAX's per device. The MoE
+layer's sharded gradients (router, tokens, experts; aux weight 1, EP with 4
+experts and expert-TP with 3) against ``jax.grad`` through the JAX
+package's ``moe_ffn(axis_info)``, also within 1e-5. And the collectives'
+autograd forms against an unsharded product's gradients, with
+``gather_blocks`` over the model axis off by the axis size.
 """
 
 import dataclasses
@@ -68,6 +76,10 @@ OPT_CFG = opt.AdamWConfig(**OPT)
 # to lr, so there the updated params are held to within one lr of the old ones only
 TINY_GRAD = 100 * OPT_CFG.eps
 MOE_CASES = {"ep": 4, "tp": 3}  # experts: 4 divide the model axis (EP), 3 do not (expert-TP)
+FSDP_CASES = ("dense",)  # on (data 4, model 1): pure FSDP
+# the port's runs: (mesh, layout, cases); "experts" is the layout the port trained in first
+RUNS = {"experts": ((2, 2), "experts", sorted(CASES)), "jax": ((2, 2), "jax", sorted(CASES)),
+        "fsdp": ((4, 1), "jax", list(FSDP_CASES))}
 AUX_W = 1.0
 
 
@@ -114,8 +126,6 @@ def _jax_sharded_steps(out_path: str) -> None:
     from repro.parallel.axisinfo import AxisInfo
     from repro.train import optimizer as jopt
 
-    mesh = jax.make_mesh((2, 2), ("data", "model"), axis_types=(AxisType.Auto, AxisType.Auto))
-    ai = AxisInfo(mesh, batch_axes=("data",), model_axis="model")
     inner = jtrainer.adamw_update
 
     def with_grads(params, grads, state, cfg):  # the gradients the step applies, as a metric
@@ -123,8 +133,11 @@ def _jax_sharded_steps(out_path: str) -> None:
         return params, state, dict(metrics, grads=grads)
 
     jtrainer.adamw_update = with_grads
-    out = {"steps": {}, "moe": {}}
-    for name, (arch, _) in CASES.items():
+
+    def sharded_step(name, shape):
+        mesh = jax.make_mesh(shape, ("data", "model"), axis_types=(AxisType.Auto, AxisType.Auto))
+        ai = AxisInfo(mesh, batch_axes=("data",), model_axis="model")
+        arch, _ = CASES[name]
         cfg = dataclasses.replace(jget(arch).smoke(), **smoke_overrides(name))
         model = jbuild(cfg)
         params = jax.jit(lambda k, m=model: m.init(k)[0])(jax.random.PRNGKey(0))
@@ -136,9 +149,16 @@ def _jax_sharded_steps(out_path: str) -> None:
         step = jax.jit(step, in_shardings=(p_shard, o_shard, None), out_shardings=(p_shard, o_shard, None))
         batch = {k: jnp.asarray(v) for k, v in make_batch(name).items()}
         new_p, new_s, metrics = step(params, state, batch)
-        out["steps"][name] = jax.tree.map(np.asarray, {
+        # the bytes of the state one device holds (every device holds as many)
+        held = sum(a.addressable_shards[0].data.nbytes for a in jax.tree.leaves((new_p, new_s)))
+        return dict(jax.tree.map(np.asarray, {
             "params0": params, "params": new_p, "m": new_s["m"], "v": new_s["v"],
-            "grads": metrics.pop("grads"), "metrics": metrics})
+            "grads": metrics.pop("grads"), "metrics": metrics}), bytes=held)
+
+    out = {"steps": {name: sharded_step(name, (2, 2)) for name in CASES},
+           "fsdp": {name: sharded_step(name, (4, 1)) for name in FSDP_CASES}, "moe": {}}
+    mesh = jax.make_mesh((2, 2), ("data", "model"), axis_types=(AxisType.Auto, AxisType.Auto))
+    ai = AxisInfo(mesh, batch_axes=("data",), model_axis="model")
     for name, n_experts in MOE_CASES.items():
         cfg = dataclasses.replace(jget("mixtral-8x7b").smoke(), n_experts=n_experts)
         params = jmoe.moe_init(jax.random.PRNGKey(1), cfg)[0]
@@ -154,11 +174,67 @@ def _jax_sharded_steps(out_path: str) -> None:
         pickle.dump(out, fh)
 
 
+# ------------------------------ the collectives' autograd forms ------------------------------
+FORM_ROWS, FORM_IN, FORM_OUT = 3, 8, 6  # rows a data shard; a product's contracting and output dims
+
+
+def form_inputs():
+    """``x`` (the rows of both data shards), weights ``w``, ``u`` and the
+    cotangent weights ``c`` of the loss ``sum(y * c)``, f32."""
+    rng = np.random.default_rng(7)
+    shapes = {"x": (2 * FORM_ROWS, FORM_IN), "w": (FORM_IN, FORM_OUT), "u": (FORM_IN, FORM_OUT),
+              "c": (2 * FORM_ROWS, FORM_OUT)}
+    return {k: rng.standard_normal(shape).astype(np.float32) for k, shape in shapes.items()}
+
+
+def form_loss(form, x, w, u, c):
+    """The unsharded function each form computes: the loss of the rows
+    ``x`` (FSDP also squares a second product)."""
+    y = x @ w + (x @ u) ** 2 if form == "fsdp" else x @ w
+    return torch.sum(y * c)
+
+
+def _forms(ai):
+    """Each form's gradients of its rank's loss share on the (data 2,
+    model 2) mesh, the rows a data shard: ``x`` whole on the model ranks;
+    ``w`` a block over ``model`` on its output dim (``tp_gather``, and
+    ``gather_blocks`` in its place) or on its contracting dim
+    (``tp_block``), or ``w`` and ``u`` blocks over ``data`` on their rows
+    (``gather_blocks_many``: FSDP)."""
+    mesh = ai.mesh
+    i, j = (collectives.axis_index(a, mesh) for a in ("data", "model"))
+    t = {k: torch.from_numpy(v) for k, v in form_inputs().items()}
+    rows = slice(i * FORM_ROWS, (i + 1) * FORM_ROWS)
+    c = t["c"][rows]
+    out = {}
+    for form in ("tp_gather", "gather_blocks", "tp_block", "fsdp"):
+        x = t["x"][rows].clone().requires_grad_(True)
+        if form == "fsdp":
+            ws = [block.clone().requires_grad_(True) for block in t["w"].chunk(2, 0)[i:i + 1] + t["u"].chunk(2, 0)[i:i + 1]]
+            w, u = collectives.gather_blocks_many(ws, "data", mesh)
+            loss = form_loss(form, x, w, u, c)
+        elif form == "tp_block":
+            ws = [t["w"].chunk(2, 0)[j].clone().requires_grad_(True)]
+            y = collectives.tp_gather([collectives.tp_block(x, -1, "model", mesh) @ ws[0]], (), mesh, "model")[0]
+            loss = torch.sum(y * c)
+        else:
+            ws = [t["w"].chunk(2, 1)[j].clone().requires_grad_(True)]
+            part = (collectives.grad_psum("model", mesh, x) @ ws[0]).movedim(-1, 0)
+            whole = (collectives.tp_gather([part], "model", mesh)[0] if form == "tp_gather" else
+                     collectives.gather_blocks(part, "model", mesh))
+            loss = torch.sum(whole.movedim(0, -1) * c)
+        grads = torch.autograd.grad(loss, [x] + ws)
+        out[form] = {"x": grads[0], "w": list(grads[1:])}
+    return out
+
+
 # ------------------------------ the port, on 4 ranks ------------------------------
 def _train_rank(ai, chosen, steps_in, moe_in):
-    """One sharded step of every case, capturing the gradients the update
-    applies; then the MoE layer's gradient shares, summed over the data axis."""
-    out = {"steps": {}, "moe": {}}
+    """One sharded step of every case in each layout (``RUNS``), capturing
+    the gradients the update applies and the bytes the rank holds; the
+    MoE layer's gradient shares, summed over the data axis; the collectives'
+    autograd forms (:func:`_forms`)."""
+    out = {"steps": {}, "moe": {}, "forms": _forms(ai)}
     inner, inner_reduce = trainer.adamw_update, trainer.reduce_gradients
     seen = {}
 
@@ -166,24 +242,28 @@ def _train_rank(ai, chosen, steps_in, moe_in):
         seen["grads"] = {k: v.clone() for k, v in _flat(grads).items()}
         return inner(params, grads, state, cfg, gnorm=gnorm)
 
-    def count_reduce(grads, axis_info):
+    def count_reduce(grads, axis_info, held):
         calls = collectives.stats["calls"]
-        inner_reduce(grads, axis_info)
+        inner_reduce(grads, axis_info, held)
         seen["grad_calls"] += collectives.stats["calls"] - calls
 
     trainer.adamw_update, trainer.reduce_gradients = capture, count_reduce
-    for name, jparams in steps_in.items():
-        arch, _ = CASES[name]
-        cfg = dataclasses.replace(get_config(arch).smoke(), **smoke_overrides(name))
-        params = params_from_jax(jparams, cfg, "cpu", axis_info=ai)
-        state = opt.adamw_init(params)
-        step = trainer.make_train_step(build_model(cfg), cfg, opt.AdamWConfig(**OPT), axis_info=ai,
-                                       param_shardings=shd.local_param_specs(params, cfg, ai))
-        batch = {k: torch.from_numpy(v) for k, v in make_batch(name).items()}
-        seen["grad_calls"] = 0
-        params, state, metrics = step(params, state, batch)
-        out["steps"][name] = {"params": _flat(params), "m": _flat(state["m"]), "v": _flat(state["v"]),
-                              "grads": seen["grads"], "metrics": metrics, "grad_calls": seen["grad_calls"]}
+    for run, (shape, layout, names) in RUNS.items():
+        run_ai = ai if shape == (2, 2) else launch_mesh.make_axis_info(launch_mesh.make_mesh(shape, ("data", "model")))
+        for name in names:
+            arch, _ = CASES[name]
+            cfg = dataclasses.replace(get_config(arch).smoke(), **smoke_overrides(name))
+            params = params_from_jax(steps_in[name], cfg, "cpu", axis_info=run_ai, layout=layout)
+            state = opt.adamw_init(params)
+            step = trainer.make_train_step(build_model(cfg), cfg, opt.AdamWConfig(**OPT), axis_info=run_ai,
+                                           param_shardings=shd.param_specs(cfg, run_ai, layout))
+            batch = {k: torch.from_numpy(v) for k, v in make_batch(name).items()}
+            seen["grad_calls"] = 0
+            params, state, metrics = step(params, state, batch)
+            held = [t for part in (params, state) for t in _flat(part).values()]
+            out["steps"][run, name] = {"params": _flat(params), "m": _flat(state["m"]), "v": _flat(state["v"]),
+                                       "grads": seen["grads"], "metrics": metrics, "grad_calls": seen["grad_calls"],
+                                       "bytes": sum(t.numel() * t.element_size() for t in held)}
     trainer.adamw_update, trainer.reduce_gradients = inner, inner_reduce
     mesh = ai.mesh
     i, n = collectives.axis_index("data", mesh), collectives.axis_size("data", mesh)
@@ -253,53 +333,82 @@ def close(got, want, tol=TOL, what=""):
     np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=tol, atol=tol, err_msg=what)
 
 
-def _spec(name, path, ai):
-    """The spec of a leaf as the port holds it (P() but for experts)."""
-    from repro_torch.convert import param_shapes
-
+def _spec(name, path, ai, layout="experts"):
+    """The spec of a leaf as the port holds it in ``layout``."""
     arch, _ = CASES[name]
     cfg = dataclasses.replace(get_config(arch).smoke(), **smoke_overrides(name))
-    return _flat(shd.local_param_specs(param_shapes(cfg), cfg, ai))[path]
+    return _flat(shd.param_specs(cfg, ai, layout))[path]
 
 
-def _block(flat, name, path, ai):
-    """JAX's leaf at ``path``, cut to the block this rank keeps (an expert leaf)."""
-    spec = _spec(name, path, ai)
+def _block(flat, name, path, ai, layout="experts"):
+    """JAX's leaf at ``path``, cut to the block this rank keeps in ``layout``."""
+    spec = _spec(name, path, ai, layout)
     return shd.shard_leaf(flat[path], spec, ai) if len(spec) else flat[path]
 
 
-def _axis_info(rank):
-    return launch_mesh.make_axis_info(shd.Mesh((2, 2), ("data", "model"), rank=rank))
+def _axis_info(rank, shape=(2, 2)):
+    return launch_mesh.make_axis_info(shd.Mesh(shape, ("data", "model"), rank=rank))
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_sharded_step_matches_jax_sharded_step(name, runs):
-    """Loss and metrics, every gradient leaf, the updated params and both
-    moments on every rank within 1e-5 of the JAX package's sharded step
-    (an expert leaf against its block; the params where the clipped
-    gradient is not within ``TINY_GRAD`` of zero, and within one lr of
-    the old params where it is); the gradients cross in one all-reduce
-    (one bucket at smoke size)."""
+def _matches_jax(run, name, runs):
+    """Every rank's step of ``run`` against the JAX package's (the
+    docstrings of the tests below): metrics, one gradient all-reduce, and
+    every leaf of the gradients, params and moments against its block."""
     ref, ranks, _ = runs
-    want = ref["steps"][name]
+    shape, layout, _ = RUNS[run]
+    want = ref["fsdp" if run == "fsdp" else "steps"][name]
     jflat = {k: _flat(want[k]) for k in ("grads", "params", "m", "v", "params0")}
     for rank, r in enumerate(ranks):
-        got = r["steps"][name]
+        got = r["steps"][run, name]
         assert sorted(got["metrics"]) == sorted(want["metrics"])
         for k, v in got["metrics"].items():
             close(v, want["metrics"][k])
         assert got["grad_calls"] == 1
-        ai = _axis_info(rank)
+        ai = _axis_info(rank, shape)
         for part in ("grads", "params", "m", "v"):
             assert sorted(got[part]) == sorted(jflat[part])
             for path, t in got[part].items():
-                want_t = _block(jflat[part], name, path, ai)
+                want_t = _block(jflat[part], name, path, ai, layout)
                 if part == "params":  # where the clipped gradient is tiny, within one lr (the docstring's rule)
-                    tiny = np.abs(_block(jflat["m"], name, path, ai)) / (1 - OPT_CFG.b1) < TINY_GRAD
-                    step = np.abs(t.numpy() - _block(jflat["params0"], name, path, ai))
+                    tiny = np.abs(_block(jflat["m"], name, path, ai, layout)) / (1 - OPT_CFG.b1) < TINY_GRAD
+                    step = np.abs(t.numpy() - _block(jflat["params0"], name, path, ai, layout))
                     assert (step[tiny] <= OPT_CFG.lr).all(), (path, rank)
                     want_t = np.where(tiny, t.numpy(), want_t)
                 close(t, want_t, what=f"{part} {path} rank {rank}")
+
+
+def _replicas_equal(run, name, runs):
+    """Each leaf bit-equal on the ranks that hold the same block of it, the
+    metrics on every rank."""
+    _, ranks, _ = runs
+    shape, layout, _ = RUNS[run]
+    mesh = shd.Mesh(shape, ("data", "model"))
+    for part in ("params", "m", "v", "grads"):
+        for path in ranks[0]["steps"][run, name][part]:
+            axes = [e for e in _spec(name, path, _axis_info(0, shape), layout) if e is not None]
+            groups = {}
+            for rank in range(mesh.size):
+                groups.setdefault(tuple(mesh.axes_index((e,) if isinstance(e, str) else e, rank) for e in axes),
+                                  []).append(rank)
+            for group in groups.values():
+                first = ranks[group[0]]["steps"][run, name][part][path]
+                for rank in group[1:]:
+                    assert torch.equal(ranks[rank]["steps"][run, name][part][path], first), (part, path, rank)
+    for r in ranks:
+        for k, v in r["steps"][run, name]["metrics"].items():
+            assert torch.equal(v, ranks[0]["steps"][run, name]["metrics"][k])
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_sharded_step_matches_jax_sharded_step(name, runs):
+    """The port's first layout (the experts split over the model axis,
+    every other leaf whole): loss and metrics, every gradient leaf, the
+    updated params and both moments on every rank within 1e-5 of the JAX
+    package's sharded step (an expert leaf against its block; the params
+    where the clipped gradient is not within ``TINY_GRAD`` of zero, and
+    within one lr of the old params where it is); the gradients cross in
+    one all-reduce (one bucket at smoke size)."""
+    _matches_jax("experts", name, runs)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -308,17 +417,67 @@ def test_sharded_step_is_the_same_on_every_rank(name, runs):
     and expert leaves across the data ranks (ranks r and r + 2 of the
     (data 2, model 2) mesh share a model coordinate); the metrics are
     equal everywhere."""
+    _replicas_equal("experts", name, runs)
+
+
+JAX_RUNS = [("jax", name) for name in sorted(CASES)] + [("fsdp", name) for name in FSDP_CASES]
+
+
+@pytest.mark.parametrize("run,name", JAX_RUNS)
+def test_jax_layout_step_matches_jax_sharded_step(run, name, runs):
+    """The JAX package's layout (``param_shardings``: FSDP over ``data``,
+    heads, ffn, vocab and the SSM projections over ``model``) on (data 2,
+    model 2), and llama's on (data 4, model 1), pure FSDP: loss and
+    metrics, every gradient leaf against its ``param_shardings`` block,
+    the params and both moments after the step, within 1e-5 of the JAX
+    package's jitted sharded step (the params by ``TINY_GRAD``'s rule); one
+    gradient all-reduce (the leaves whole over ``data``: the FSDP leaves
+    were reduce-scattered in the backward)."""
+    _matches_jax(run, name, runs)
+
+
+@pytest.mark.parametrize("run,name", JAX_RUNS)
+def test_jax_layout_replicas_are_bit_equal(run, name, runs):
+    """After a step in the JAX layout, every leaf is bit-equal on the ranks
+    that hold the same block of it; the metrics on every rank."""
+    _replicas_equal(run, name, runs)
+
+
+@pytest.mark.parametrize("run,name", JAX_RUNS)
+def test_jax_layout_bytes_a_rank_equal_jax(run, name, runs):
+    """The params and AdamW state a rank holds after the step, to the byte
+    the state one device holds after the JAX package's step."""
+    ref, ranks, _ = runs
+    want = ref["fsdp" if run == "fsdp" else "steps"][name]["bytes"]
+    assert [r["steps"][run, name]["bytes"] for r in ranks] == [want] * len(ranks)
+
+
+@pytest.mark.parametrize("form", ["tp_gather", "tp_block", "fsdp", "gather_blocks"])
+def test_collective_forms_match_the_unsharded_gradient(form, runs):
+    """Each autograd form on 4 gloo ranks: the gradients of the rows and of
+    the weight blocks, summed over the data ranks where the rows are split
+    (FSDP's are summed by its reduce-scatter), equal the unsharded
+    product's. ``gather_blocks`` over the model axis in ``tp_gather``'s
+    place sums cotangents that every model rank already holds whole, so its
+    gradients are the unsharded ones times the axis size: the factor is
+    there, and is why the model axis needs its own forms."""
     _, ranks, _ = runs
-    for part in ("params", "m", "v", "grads"):
-        for path in ranks[0]["steps"][name][part]:
-            groups = [(0, 2), (1, 3)] if len(_spec(name, path, _axis_info(0))) else [(0, 1, 2, 3)]
-            for group in groups:
-                first = ranks[group[0]]["steps"][name][part][path]
-                for rank in group[1:]:
-                    assert torch.equal(ranks[rank]["steps"][name][part][path], first), (part, path, rank)
-    for r in ranks:
-        for k, v in r["steps"][name]["metrics"].items():
-            assert torch.equal(v, ranks[0]["steps"][name]["metrics"][k])
+    t = {k: torch.from_numpy(v).requires_grad_(k in "xwu") for k, v in form_inputs().items()}
+    gx, gw, gu = torch.autograd.grad(form_loss(form, t["x"], t["w"], t["u"], t["c"]), [t["x"], t["w"], t["u"]],
+                                     allow_unused=True)
+    factor = 2.0 if form == "gather_blocks" else 1.0
+    for rank, r in enumerate(ranks):
+        i, j = divmod(rank, 2)
+        got = r["forms"][form]
+        close(got["x"], factor * gx[i * FORM_ROWS:(i + 1) * FORM_ROWS], what=f"x rank {rank}")
+        if form == "fsdp":
+            for g, w in zip(got["w"], [gw.chunk(2, 0)[i], gu.chunk(2, 0)[i]]):
+                close(g, w, what=f"w rank {rank}")
+            continue
+        # the row shards' shares of a block, summed over the data ranks
+        total = got["w"][0] + ranks[(i ^ 1) * 2 + j]["forms"][form]["w"][0]
+        want = gw.chunk(2, 0 if form == "tp_block" else 1)[j]
+        close(total, factor * want, what=f"w rank {rank}")
 
 
 @pytest.mark.parametrize("routed", ["local", "replicated"])

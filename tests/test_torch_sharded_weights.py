@@ -8,7 +8,7 @@ Four ranks (spawned processes over gloo on the CPU, 60 s deadline) on a
 then stay whole while its 4 q heads split (the rank slices the kv head its
 q head reads). Both packages take the same weights, drawn once by the
 port's ``init`` from seed 0 and handed over as numpy; each rank cuts its
-blocks (``params_from_jax(..., layout="serving")``) and prefills its block
+blocks (``params_from_jax(..., layout="jax")``) and prefills its block
 of the 4 rows of 64 tokens and takes three teacher-forced decode steps on
 the striped cache the prefill returns. The JAX side runs in three subprocesses
 with 4 forced host devices on a mesh of ``AxisType.Auto`` axes: ``prefill``
@@ -203,7 +203,7 @@ def _serve_cases(ai, params_in, names):
     for name in names:
         cfg = smoke(name)
         model = build_model(cfg)
-        local = params_from_jax(params_in[name], cfg, "cpu", axis_info=ai, layout="serving")
+        local = params_from_jax(params_in[name], cfg, "cpu", axis_info=ai, layout="jax")
         batch, tokens = make_inputs(name)
         held_rows = {k: shd.shard_leaf(torch.from_numpy(v), rows, ai).clone() for k, v in batch.items()}
         logits, cache = model.prefill(local, port_inputs(name, batch), axis_info=ai)
@@ -213,7 +213,7 @@ def _serve_cases(ai, params_in, names):
             lg, cache = model.decode_step(local, cache, torch.from_numpy(t), axis_info=ai)
             steps.append(lg)
         init = model.init(0, "cpu", axis_info=ai)
-        want = shd.shard_params(model.init(0, "cpu"), cfg, ai, layout="serving")
+        want = shd.shard_params(model.init(0, "cpu"), cfg, ai, layout="jax")
         same = shd._map(lambda _, a, b: a.shape == b.shape and torch.equal(a, b), init, want)
         states = cache.get("ssm", {})
         layouts = None  # the prefill's stripes against shard_cache of the unsharded prefill
@@ -378,7 +378,7 @@ def test_a_leaf_in_no_layout_raises_naming_it():
 
     cfg = smoke("dense")
     ai = AxisInfo(Mesh((2, 2), ("data", "model"), rank=3), ("data",))
-    params = shd.shard_params(build_model(cfg).init(0, "cpu"), cfg, ai, layout="serving")
+    params = shd.shard_params(build_model(cfg).init(0, "cpu"), cfg, ai, layout="jax")
     assert shd.held_specs(params, cfg, ai)["blocks"]["attn"]["wq"] == shd.P(None, "data", "model")
     params["blocks"]["attn"]["wq"] = params["blocks"]["attn"]["wq"][:, :, :1]
     with pytest.raises(ValueError, match=r"params\['blocks', 'attn', 'wq'\]"):
