@@ -160,12 +160,24 @@ JAX package), and it:
     and depth, 2048-token prompts; (b) ``mixtral-8x7b`` cut to 4 layers,
     4160-token prompts, held to the oracle where the router chose alike;
     (c) ``mistral-large-123b`` cut to 16 layers (step 10's depth), int8
-    pools. Checks: each rank's weights are the layout's bytes; logits
+    pools; (d) ``zamba2-2.7b`` at full width cut to 2 of its 9 groups (12
+    layers), 2048-token prompts, in f32 compute and f32 pools
+    (``SHARD_ZAMBA2_COMPUTE``: at full depth in bf16 its logits move by
+    more than ``SHARD_LOGITS_TOL`` under any rounding difference), and (d')
+    the same model in bf16, the users' dtype, cut to one group (6 layers,
+    ``SHARD_ZAMBA2_BF16_LAYERS``), where bf16's spread stays inside the
+    tolerance; in both each rank holds the SSM states of its 4 rows only
+    (``cache_shardings``: the conv and the scan run on those rows, their
+    output regathered over the batch axes before ``out_proj``), the flash
+    kernel runs on its 16 local heads and the paged kernel on its stripe.
+    Checks: each rank's weights
+    are the layout's bytes, and its SSM states the layout's; logits
     bit-equal across the ranks that hold the same rows and within
     ``SHARD_LOGITS_TOL`` of the oracle's; greedy tokens the oracle's but at
     printed near-ties; one flash launch a layer in the prefill and one
     paged launch a layer a step. Prints each rank's weight bytes, its
-    prefill arguments beside the dry run's count, prefill ms, median
+    prefill arguments beside the dry run's count, its SSM state bytes
+    beside the layout's, prefill ms, median
     decode step, time and bytes in the all-reduces, launches, peak memory
     and the card's free memory after the prefill (``mem_get_info``), and
     rank 1's flash kernel, plain version and SDPA on its local heads;
@@ -176,7 +188,9 @@ JAX package), and it:
     and vocab over ``model``), in f32 compute (``TRAIN_SHARD_COMPUTE``).
     (a) ``llama3_2-1b`` at full width and all 16 layers, 2 steps of 4 x
     2048 tokens from ``TokenPipeline`` (grad_accum 4: A = 2, one row a
-    rank a microbatch), held to the same steps unsharded: the losses, the
+    rank a microbatch; each rank handed its rows of the batch alone, as the
+    JAX package's ``batch_shardings`` lays them), held to the same steps
+    unsharded: the losses, the
     first step's gradients and the moments after it, leaf by leaf, and the
     state and batch a rank holds to the byte the dry run's count
     (``dryrun.arguments``); (b) ``mixtral-8x7b`` at full width cut to 1
@@ -240,10 +254,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# one H100 SXM at its full 700 W (NVIDIA's data sheet): device memory rate
-# and dense bf16 tensor-core rate, for the bound of each kernel
+# one H100 SXM at its full 700 W (NVIDIA's data sheet): device memory rate,
+# dense bf16 tensor-core rate and f32 rate outside the tensor cores (TF32 is
+# off), for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12
 TOL = {"flash_attention": 2e-2}  # bf16, tests/test_kernels.py
 # f32, the same file; the paged kernel's (o, m, l) are f32 whatever the pool's dtype
 TOL_F32 = {"paged_attention": 3e-5, "flash_attention": 2e-5}
@@ -462,9 +478,11 @@ def check_flash(args, kw, name):
     return err
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, dtype=torch.bfloat16):
+    """The least time for ``nbytes`` moved and ``flops`` done on inputs of
+    ``dtype``: the larger of the memory and the operations bound."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / (F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -2459,6 +2477,21 @@ RANKS, RANKS_MODEL = 4, 2  # a (data 2, model 2) mesh: the JAX package's (4, 2) 
 SHARD_DEADLINE_S = 600.0  # every rank and every collective of step 15 ends by this deadline
 SHARD_MIXTRAL_LAYERS = 4  # of 32: the unsharded oracle runs first, alone on the card
 SHARD_MISTRAL_LAYERS = MISTRAL_LAYERS  # of 88: step 10's depth; the oracle's 42.0 GB run alone and are freed
+# (d)'s depth: the script's 1200 s leave room for 2 of zamba2-2.7b's 9 groups of 6 Mamba2 layers (a
+# cut takes whole groups); at all 54 the script took 1237.1 s on a machine 1.2-1.5x slower in every
+# step than another, where it took 883.9 s with (d) at 36 (PERF.md §6)
+SHARD_ZAMBA2_LAYERS = 12
+# (d)'s compute and KV dtype. zamba2 in bf16 at full depth lands 6.3% (prefill) and 8.1% (decode)
+# of max |logit| off the same model in f32, and 4 rows against 8 of one bf16 model move its decode
+# logits 4.6% (PERF.md §6): any bf16 rounding difference, the sharded partial sums' among
+# them (6.0% and 8.8%), grows past SHARD_LOGITS_TOL through the 54 Mamba2 layers. In f32 the
+# sharded run is within 1.4e-5 of the oracle, so the tolerance still tells a wrong block or factor
+SHARD_ZAMBA2_COMPUTE = "float32"
+# (d'): the same model in bf16 (its config's dtype, the users' path: the tensor-core flash kernel,
+# bf16 pools and activations, the SSM states f32), one group deep, where bf16's own spread stays inside
+# SHARD_LOGITS_TOL: unsharded, 2.1% (prefill) and 2.3% (decode) off f32, sharded 1.7% and 2.5% off the
+# bf16 oracle (PERF.md §6, tools/sharded_precision.py serve --layers 6)
+SHARD_ZAMBA2_BF16_LAYERS = 6
 # every capacity is the layer's whole token count, as in the smoke configs: the sharded
 # MoE counts capacity over each data shard's tokens (the JAX package's rule), so with
 # drops the two runs would drop different assignments and compute different functions
@@ -2482,8 +2515,28 @@ def shard_cells() -> tuple:
     mixtral = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=SHARD_MIXTRAL_LAYERS,
                                   capacity_factor=SHARD_MOE_CAPACITY)
     mistral = dataclasses.replace(get_config("mistral-large-123b"), n_layers=SHARD_MISTRAL_LAYERS)
+    zamba2 = get_config("zamba2-2.7b")
+    zamba2_f32 = dataclasses.replace(zamba2, n_layers=SHARD_ZAMBA2_LAYERS, compute_dtype=SHARD_ZAMBA2_COMPUTE,
+                                     kv_cache_dtype=SHARD_ZAMBA2_COMPUTE)
+    zamba2_bf16 = dataclasses.replace(zamba2, n_layers=SHARD_ZAMBA2_BF16_LAYERS)
     return (("llama", get_config("llama3_2-1b"), PROMPT), ("mixtral", mixtral, MIXTRAL_PROMPT),
-            ("mistral", mistral, PROMPT))
+            ("mistral", mistral, PROMPT), ("zamba2", zamba2_f32, PROMPT), ("zamba2_bf16", zamba2_bf16, PROMPT))
+
+
+def attention_layers(cfg) -> int:
+    """The attention layers a prefill or a decode step runs: the hybrid's
+    shared block once a group, every layer otherwise."""
+    return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
+
+
+def layout_state_bytes(cfg, rows: int) -> int:
+    """The f32 SSM states (``ssm`` and ``conv``) of ``rows`` rows, from the
+    config alone: what ``cache_shardings`` leaves a rank of a batch of
+    ``rows`` times the batch shards."""
+    if cfg.family not in ("ssm", "hybrid"):
+        return 0
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    return 4 * cfg.n_layers * rows * (cfg.ssm_heads * cfg.ssm_state * cfg.ssm_headdim + (cfg.ssm_conv - 1) * conv_dim)
 
 
 def _oracle_decode(model, params, cache, logits, cfg) -> tuple:
@@ -2687,7 +2740,7 @@ def _shard_kernel_check(model, params, cache, token, ai, dev, flush) -> dict:
            "max_abs_err": err, "scaled_err": scaled, "stat_err": stat_err}
     if flush is not None:  # rank 1
         nbytes, flops = paged_work(args, window, off)
-        b_ms, b_by = bound_ms(nbytes, flops)
+        b_ms, b_by = bound_ms(nbytes, flops, args[0].dtype)
         res.update(ms=time_ms(lambda: inner(*args, window=window, page_offset=off), flush=flush),
                    plain_ms=time_ms(lambda: paged_attention_plain(*args, window=window, page_offset=off),
                                     iters=10, flush=flush),
@@ -2751,7 +2804,7 @@ def _shard_flash_check(first, ai, dev, flush, name) -> dict:
         plain = lambda: [flash_attention_plain(q[b:b + 1], k[b:b + 1], v[b:b + 1], **kw) for b in range(B)]  # noqa: E731
         res.update(ms=time_ms(lambda: flash_attention_cuda(q, k, v, **kw), 10, flush=flush),
                    plain_ms=time_ms(plain, 3, flush=flush), library_ms=time_ms(library, 10, flush=flush))
-        res.update(zip(("bound_ms", "bound_by"), bound_ms(*flash_work((q, k, v), kw))))
+        res.update(zip(("bound_ms", "bound_by"), bound_ms(*flash_work((q, k, v), kw), q.dtype)))
         del qt, kt, vt, library
         torch.cuda.empty_cache()
     dist.barrier()
@@ -2832,8 +2885,13 @@ def _serve_sharded(name, cfg, prompt_len, ai, dev, kernels, flush, tokens) -> di
     free, total = torch.cuda.mem_get_info(dev)
     prefill_peak = torch.cuda.max_memory_allocated(dev) / 2**30
     res = {"prefill_routes": _recorded_routes(routes)} if routes is not None else {}
-    check(prefill_launches["flash_attention"] == cfg.n_layers and prefill_launches["paged_attention"] == 0,
+    n_attn = attention_layers(cfg)
+    check(prefill_launches["flash_attention"] == n_attn and prefill_launches["paged_attention"] == 0,
           f"{name}: rank {rank} launched {prefill_launches} in the sharded prefill")
+    held_states = cost.storage_bytes(cache.get("ssm", {}))
+    layout_states = layout_state_bytes(cfg, prompt.shape[0] // ai.n_batch_shards)
+    check(held_states == layout_states, f"{name}: rank {rank} holds {held_states} bytes of SSM states after the "
+                                        f"prefill, the layout {layout_states}")
     res["flash_check"] = _shard_flash_check(flash["first"], ai, dev, flush, name)
     flash["first"] = None
     cache = add_headroom(cache, ai)
@@ -2846,8 +2904,10 @@ def _serve_sharded(name, cfg, prompt_len, ai, dev, kernels, flush, tokens) -> di
         routes["restore"]()
     check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(p_logits).all()),
           f"{name}: non-finite sharded logits on rank {rank}")
-    check(launches["paged_attention"] == cfg.n_layers * N_DECODE and launches["flash_attention"] == 0,
+    check(launches["paged_attention"] == n_attn * N_DECODE and launches["flash_attention"] == 0,
           f"{name}: rank {rank} launched {launches} in {N_DECODE} sharded decode steps")
+    check(cost.storage_bytes(cache.get("ssm", {})) == layout_states,
+          f"{name}: rank {rank}'s SSM states after decode are not the layout's {layout_states} bytes")
     res.update(digests=[_digest(g) for g in got], prefill_digest=_digest(p_logits), steps_ms=[s * 1e3 for s in steps],
                prefill_ms=prefill_ms, build_s=build_s, launches=launches, prefill_launches=prefill_launches,
                prefill_allreduces=prefill_calls, prefill_allreduce_bytes=prefill_bytes,
@@ -2855,6 +2915,8 @@ def _serve_sharded(name, cfg, prompt_len, ai, dev, kernels, flush, tokens) -> di
                collective_ms_per_step=_collective_ms(model, params, cache, tokens, ai, dev),
                pool_pages_local=cache["kv"]["pool_k"].shape[1], weight_bytes=weight_bytes,
                reckoned_weight_bytes=reckoned, prefill_args=held_args, dryrun_prefill_args=dry_args,
+               state_bytes=held_states, layout_state_bytes=layout_states,
+               state_bytes_after_decode=cost.storage_bytes(cache.get("ssm", {})),
                prefill_peak_gib=prefill_peak, free_after_prefill_gib=free / 2**30, card_gib=total / 2**30)
     res["kernel_check"] = _shard_kernel_check(model, params, cache, tokens[0], ai, dev, flush)
     if rank == 0:
@@ -2868,8 +2930,8 @@ def _serve_sharded(name, cfg, prompt_len, ai, dev, kernels, flush, tokens) -> di
 
 
 def sharded_rank(ai, chosen, card, oracle_tokens):
-    """Step 15 on one rank: (a), (b), (c) in turn; every rank returns its
-    measures (see :func:`_serve_sharded`)."""
+    """Step 15 on one rank: (a), (b), (c), (d), (d') in turn; every rank
+    returns its measures (see :func:`_serve_sharded`)."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.paged_attention import paged_attention_cuda
 
@@ -2894,7 +2956,9 @@ def sharded_rank(ai, chosen, card, oracle_tokens):
               f"bytes, the dry run's at the compute dtype {r['dryrun_prefill_args']}; prefill {r['prefill_ms']:.1f} ms, peak "
               f"{r['prefill_peak_gib']:.2f} GiB, card free after it {r['free_after_prefill_gib']:.2f} of "
               f"{r['card_gib']:.2f} GiB (mem_get_info); median decode step {statistics.median(r['steps_ms']):.2f} "
-              f"ms; peak {r['peak_gib']:.2f} GiB", flush=True)
+              f"ms; peak {r['peak_gib']:.2f} GiB"
+              + (f"; SSM states {r['state_bytes']} bytes (the layout's {r['layout_state_bytes']})"
+                 if r["layout_state_bytes"] else ""), flush=True)
     return out
 
 
@@ -2948,7 +3012,7 @@ def sharded_phase(card) -> dict:
     out = {"backend": plan.backend, "ranks": RANKS, "cards": torch.cuda.device_count(), "wall_s": wall,
            "oracle_s": oracle_s, "ranks_s": ranks_s, "card": card}
     n_data = RANKS // RANKS_MODEL
-    for (name, cfg, prompt_len), tag in zip(shard_cells(), "abc"):
+    for (name, cfg, prompt_len), tag in zip(shard_cells(), ("a", "b", "c", "d", "d'")):
         rs = [r[name] for r in res]
         oracle = oracles[name]
         for r in rs[1:]:
@@ -2974,6 +3038,8 @@ def sharded_phase(card) -> dict:
                "free_at_end_gib": [r["free_at_end_gib"] for r in rs],
                "peak_gib": [r["peak_gib"] for r in rs], "oracle_peak_gib": oracle["peak_gib"],
                "pool_pages_local": rs[0]["pool_pages_local"],
+               "state_bytes": [r["state_bytes"] for r in rs], "layout_state_bytes": rs[0]["layout_state_bytes"],
+               "state_bytes_after_decode": [r["state_bytes_after_decode"] for r in rs],
                "kernel_check": [r["kernel_check"] for r in rs], "flash_check": [r["flash_check"] for r in rs]}
         perr = _logit_errs(prefill[None], oracle["prefill"][None])[0]
         derr = _logit_errs(rs[0]["decode"], oracle["decode"])
@@ -2993,6 +3059,9 @@ def sharded_phase(card) -> dict:
               f"{oracle['weight_bytes'] / 2**30:.2f} GiB; prefill arguments a rank {row['prefill_args']} bytes, the "
               f"dry run's count with every leaf in the compute dtype {row['dryrun_prefill_args']}; logits vs the unsharded model, max |d| over max "
               f"|oracle|: prefill {row['prefill_err']}, decode {row['max_err']} (tol {SHARD_LOGITS_TOL})"
+              + (f"; SSM states a rank {row['state_bytes']} bytes after the prefill, "
+                 f"{row['state_bytes_after_decode']} after decode (the layout's {row['layout_state_bytes']} for "
+                 f"{8 // n_data} rows)" if row["layout_state_bytes"] else "")
               + (f"; rows whose router choice differs: prefill {row['prefill_flip_rows']} of 8, decode "
                  f"{row['decode_flip_rows']} of {N_DECODE * 8}" if cfg.is_moe else ""), flush=True)
         for err in (row["prefill_err"], row["max_err"]):
@@ -3041,7 +3110,7 @@ MOE_TRAIN_CAPACITY = 4.0  # as step 15 (b): every assignment gets a slot, so no 
 # in bf16 the 16-layer step's leaves then land 2.0-3.4% (of a leaf's largest) off the unsharded
 # oracle, whose own spread over another microbatch split is 0.5-1.0%, and mixtral's routes flip
 # (24% on its table), so a wrong factor or block below a few percent would not show. In f32 both
-# cells agree with their oracles to about 1e-5 (PERF.md §6, tools/train_sharded_precision.py)
+# cells agree with their oracles to about 1e-5 (PERF.md §6, tools/sharded_precision.py train)
 TRAIN_SHARD_COMPUTE = "float32"
 # the sharded loss against the unsharded (or, for the MoE, the shard-by-shard single-device)
 # oracle, relative; a leaf's gradient (and moment), max |d| over max |oracle|
@@ -3215,8 +3284,9 @@ def _timed_reduce(dev, out: dict):
 
 
 def _sharded_train_cell(cfg, ai, dev, batches, oracle_path, in_turn: bool) -> dict:
-    """Train ``cfg`` across the ranks, in the JAX package's layout, on the
-    global ``batches``: each step's host ms (synchronised), loss, gradient
+    """Train ``cfg`` across the ranks, in the JAX package's layout, each
+    rank on its ``batch_shardings`` block of the global ``batches`` (its
+    rows alone): each step's host ms (synchronised), loss, gradient
     all-reduce calls, bytes and ms, the state's digests after each step,
     the memory after the first step, the bytes of the state and batch the
     rank holds beside the dry run's count, and each leaf's error against
@@ -3247,11 +3317,15 @@ def _sharded_train_cell(cfg, ai, dev, batches, oracle_path, in_turn: bool) -> di
     tap = _GradTap()
     out = {"steps_ms": [], "losses": [], "digests": [], "grad_calls": [], "grad_bytes": []}
     try:
-        for i, b in enumerate(batches):
+        for i, whole in enumerate(batches):
+            rows = len(whole["labels"])
+            b = {k: shd.shard_leaf(v, spec, ai) for (k, v), spec in
+                 zip(whole.items(), shd.batch_shardings(whole, cfg, ai).values())}
             reduce.update(calls=0, bytes=0)
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
-            params, opt_state, metrics = step(params, opt_state, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+            params, opt_state, metrics = step(params, opt_state, {k: torch.from_numpy(v).to(dev) for k, v in b.items()},
+                                              rows)
             torch.cuda.synchronize(dev)
             out["steps_ms"].append((time.perf_counter() - t0) * 1e3)
             out["losses"].append(float(metrics["loss"]))
@@ -3260,7 +3334,7 @@ def _sharded_train_cell(cfg, ai, dev, batches, oracle_path, in_turn: bool) -> di
             if i == 0:
                 held = [*_paths(params).values(), *_paths(opt_state).values()]
                 out["state_bytes"] = sum(t.numel() * t.element_size() for t in held) + sum(
-                    v.nbytes for v in b.values())  # the global batch: every rank reads all of it
+                    v.nbytes for v in b.values())  # the rank's rows of the batch
                 free, total = torch.cuda.mem_get_info(dev)
                 out.update(peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, card_free_gib=free / 2**30,
                            card_total_gib=total / 2**30)
@@ -3716,6 +3790,12 @@ def dryrun_phase(dev, card, kernels, training) -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    start = time.perf_counter()
+
+    def stamp(n: int) -> None:
+        """Where the script's time goes: when step ``n`` starts."""
+        print(f"-- step {n} at {time.perf_counter() - start:.1f} s", flush=True)
+
     sys.path.insert(0, str(ROOT / "src"))
     try:
         from repro_torch.configs import get_config
@@ -3733,6 +3813,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. the card
+    stamp(1)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
@@ -3743,6 +3824,7 @@ def main() -> None:
           flush=True)
 
     # 2. build
+    stamp(2)
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"build: {built or 'up to date'} in {time.perf_counter() - t0:.2f} s", flush=True)
@@ -3753,6 +3835,7 @@ def main() -> None:
     print(json.dumps({"ptxas": ptxas}), flush=True)
 
     # 3. kernels vs plain on the card
+    stamp(3)
     print("kernels vs plain:", flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -3831,6 +3914,7 @@ def main() -> None:
     del flush, dk, dv
 
     # 4. the engine at full width
+    stamp(4)
     cfg = get_config("llama3_2-1b")
     check((cfg.n_layers, cfg.d_model, cfg.vocab_size) == (16, 2048, 128256), f"unexpected config {cfg}")
     model = build_model(cfg)
@@ -3883,6 +3967,7 @@ def main() -> None:
     hold_to_ref(model, engine.params, captured, CAPTURE_STEP, requests[0].prompt, dev)
 
     # 5. blob mode
+    stamp(5)
     kernels = (flash_attention_cuda, paged_attention_cuda)
     launches_blob = blob_phase(cfg, engine, done, host_rec, card, kernels)
     print(f"blob-mode launches {launches_blob}", flush=True)
@@ -3891,6 +3976,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 6. h2o-danube-3-4b: head dim 120
+    stamp(6)
     danube = get_config("h2o-danube-3-4b")
     check((danube.n_layers, danube.d_model, danube.head_dim, danube.d_ff) == (24, 3840, 120, 10240),
           f"unexpected config {danube}")
@@ -3899,6 +3985,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 7. mixtral-8x7b: the MoE family and the sliding window at full width
+    stamp(7)
     mixtral = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=MIXTRAL_LAYERS)
     check((mixtral.d_model, mixtral.n_heads, mixtral.n_kv_heads, mixtral.head_dim, mixtral.d_ff,
            mixtral.n_experts, mixtral.top_k, mixtral.vocab_size, mixtral.sliding_window, mixtral.rope_theta,
@@ -3911,6 +3998,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 8. mamba2-370m: the ssm family at full width and depth, model API
+    stamp(8)
     mamba = get_config("mamba2-370m")
     check((mamba.n_layers, mamba.d_model, mamba.d_inner, mamba.ssm_heads, mamba.ssm_headdim, mamba.ssm_state,
            mamba.ssm_conv, mamba.ssm_chunk, mamba.vocab_size, mamba.padded_vocab)
@@ -3921,6 +4009,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 9. zamba2-2.7b: the hybrid family at full width and depth, model API
+    stamp(9)
     zamba = get_config("zamba2-2.7b")
     check((zamba.n_layers, zamba.attn_every, zamba.d_model, zamba.d_inner, zamba.ssm_heads, zamba.ssm_state,
            zamba.n_heads, zamba.n_kv_heads, zamba.head_dim, zamba.d_ff, zamba.vocab_size)
@@ -3931,6 +4020,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 10. mistral-large-123b: int8 KV pools, cut to 16 of its 88 layers
+    stamp(10)
     mistral = dataclasses.replace(get_config("mistral-large-123b"), n_layers=MISTRAL_LAYERS)
     check((mistral.d_model, mistral.n_heads, mistral.n_kv_heads, mistral.head_dim, mistral.d_ff,
            mistral.vocab_size, mistral.rope_theta, mistral.kv_cache_dtype, mistral.param_dtype)
@@ -3941,6 +4031,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 11. seamless-m4t-medium: the encoder-decoder at full width and depth, model API
+    stamp(11)
     seamless = get_config("seamless-m4t-medium")
     check((seamless.family, seamless.n_enc_layers, seamless.n_dec_layers, seamless.d_model, seamless.n_heads,
            seamless.n_kv_heads, seamless.head_dim, seamless.d_ff, seamless.vocab_size, seamless.padded_vocab,
@@ -3953,6 +4044,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 12. training: llama3_2-1b at full width and depth, every family's smoke step, the launcher
+    stamp(12)
     print("training:", flush=True)
     training = training_phase(dev, kernels)
     print(f"training: {json.dumps(training)}", flush=True)
@@ -3960,11 +4052,13 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 13. the sky application at the paper's deployment
+    stamp(13)
     print("sky:", flush=True)
     sky = sky_phase(dev, card, kernels)
     gc.collect()
 
     # 14. the sky application over a federation of 4 access nodes, under node faults
+    stamp(14)
     print("federated sky:", flush=True)
     from repro_torch.launch.supernovae import Deployment
 
@@ -3972,6 +4066,7 @@ def main() -> None:
     gc.collect()
 
     # 15. serving across ranks: four spawned ranks, the KV pools striped over them
+    stamp(15)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"serving across ranks ({torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated here):",
@@ -3979,6 +4074,7 @@ def main() -> None:
     sharded = sharded_phase(card)
 
     # 16. training across ranks: four spawned ranks, the experts over the model axis
+    stamp(16)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"training across ranks ({torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated here):",
@@ -3986,12 +4082,14 @@ def main() -> None:
     train_sharded = train_sharded_phase(card)
 
     # 17. the dry run on fake ranks, and held to the card
+    stamp(17)
     gc.collect()
     torch.cuda.empty_cache()
     print("dry run:", flush=True)
     dry = dryrun_phase(dev, card, kernels, training)
 
     # 18. results
+    stamp(18)
     sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:79"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -4010,7 +4108,7 @@ def main() -> None:
             "launches_train": training["launches"][name], "launches_sky": sky["launches"][name],
             "launches_federated_sky": fed_sky["launches"][name],
             "launches_sharded": {cell: [n[name] for n in sharded[cell]["launches"]]
-                                 for cell in ("llama", "mixtral", "mistral")},
+                                 for cell in ("llama", "mixtral", "mistral", "zamba2", "zamba2_bf16")},
             "launches_train_sharded": [n[name] for n in train_sharded["launches"]],
             "launches_dryrun": dry["launches"][name],
             "shapes": rows[name], **grids[name],

@@ -13,11 +13,13 @@ ranks as rank 0, and counts what rank 0 runs with
 generator, which fake tensors cannot), laid out as the port lays them out
 (:func:`repro_torch.parallel.sharding.shard_params`): every cell in the
 ``"jax"`` layout, every leaf its ``param_shardings`` block, the JAX
-package's own layout (a train cell's AdamW moments too). A prefill takes
-the global batch and reads this rank's rows of it, so its arguments count
-those rows (the block ``batch_shardings`` gives the rank, as the JAX
-package's ``in_shardings``); decode rows are replicated on every rank, and
-so are its tokens. Fake tensors are CPU tensors, so
+package's own layout (a train cell's AdamW moments too). A train step
+takes this rank's block of the batch, and a prefill takes the global
+batch and reads this rank's rows of it; the arguments of both count those
+rows (the block ``batch_shardings`` gives the rank, as the JAX package's
+``in_shardings``). A decode cache holds the pools' stripe and the SSM
+states of the rank's rows (``cache_shardings``); decode rows are
+replicated on every rank, and so are its tokens. Fake tensors are CPU tensors, so
 every attention call takes a plain path: prefill and training the JAX
 package's XLA path in PyTorch (``impl="xla"``), decode the paged kernel's
 plain version, as the JAX dry run takes its XLA path (``use_pallas=False``).
@@ -120,17 +122,21 @@ def model_flops(cfg: ModelConfig, kind: str, batch: int, seq: int) -> int:
 def build_step(cfg: ModelConfig, kind: str, batch: int, seq: int, axis_info: Optional[AxisInfo]):
     """``(fn, args, held)`` of one step of ``kind`` at the global ``batch``
     x ``seq``, its inputs made in the current mode: the train step (params,
-    AdamW state and the global batch, as the port's sharded step takes
-    it), a prefill, or one decode step over an empty cache for ``seq``
-    tokens (its pools padded and striped over the page axes). ``held`` is
-    what the rank holds of ``args``: a prefill's batch cut to its rows."""
+    AdamW state and this rank's block of the batch), a prefill, or one
+    decode step over an empty cache for ``seq`` tokens (this rank's: its
+    pools' stripe, its rows' SSM states). ``held`` is what the rank holds of
+    ``args``: a prefill's batch cut to its rows."""
     model = build_model(cfg)
     params = abstract_params(cfg, axis_info)
     if kind == "train":
         step = make_train_step(model, cfg, AdamWConfig(), axis_info)
-        data = _materialize(S.train_batch_spec(cfg, batch, seq))
+        spec = S.train_batch_spec(cfg, batch, seq)
+        data = _materialize(spec)
+        if axis_info is not None:
+            blocks = shd.batch_shardings(spec, cfg, axis_info)
+            data = {k: shd.shard_leaf(v, blocks[k], axis_info).clone() for k, v in data.items()}
         args = (params, adamw_init(params), data)
-        return step, args, args
+        return (lambda p, o, d: step(p, o, d, batch)), args, args
     if kind == "prefill":
         spec = S.prefill_batch_spec(cfg, batch, seq)
         data = _prefill_inputs(cfg, _materialize(spec))
@@ -140,10 +146,7 @@ def build_step(cfg: ModelConfig, kind: str, batch: int, seq: int, axis_info: Opt
             held = _prefill_inputs(cfg, {k: shd.shard_leaf(v, blocks[k], axis_info).clone() for k, v in
                                          _materialize(spec).items()})
         return (lambda p, x: model.prefill(p, x, impl=IMPL, axis_info=axis_info)), (params, data), (params, held)
-    pad = axis_info.n_page_shards if axis_info is not None else 1
-    cache = model.init_cache(batch, seq, device="cpu", pad_pages_to=pad)
-    if axis_info is not None:
-        cache = shd.shard_cache(cache, cfg, axis_info)
+    cache = model.init_cache(batch, seq, device="cpu", axis_info=axis_info)
     tokens = torch.zeros(S.decode_tokens_spec(cfg, batch).shape, dtype=torch.int32)
     args = (params, cache, tokens)
     return (lambda p, c, t: model.decode_step(p, c, t, impl=IMPL, axis_info=axis_info)), args, args

@@ -18,9 +18,11 @@ JAX package's ``COORDINATOR_ADDRESS``/``NUM_PROCESSES``/``PROCESS_ID``):
 and the same with ``RANK`` 1-3. The params and both AdamW moments are
 held in the JAX launcher's layout, ``param_shardings`` (heads, ffn, vocab
 and the experts over ``model``, ``embed`` over ``data``: FSDP). Every rank
-reads the global batch from a pipeline over its own copy of the corpus
-(the blob store lives in one process; the JAX package's one process reads
-the global batch too), trains on its data shard, and rank 0 holds the
+reads its ``batch_shardings`` block of each global batch, its rows alone,
+from a pipeline over its own copy of the corpus (the blob store lives in
+one process): ``TokenPipeline`` with the batch shards as its ranks reads
+exactly the global reader's rows of that block (the global batch whole
+where its rows do not divide over the batch shards), and rank 0 holds the
 checkpoints of the logical state: every leaf is regathered before each
 save, and a restore broadcasts each leaf and keeps this rank's block on
 any mesh (:func:`repro_torch.storage.checkpoint.restore_onto_mesh`). Runs
@@ -82,6 +84,17 @@ def _logical_meta(params, cfg):
     return shd._map(lambda _, shape, leaf: torch.empty(shape, dtype=leaf.dtype, device="meta"),
                     param_shapes(cfg), params)
 
+
+
+def pipeline_config(batch: int, seq: int, seed: int, axis_info) -> PipelineConfig:
+    """The reader of this rank's rows of each global batch of ``batch``
+    rows: its block over the batch axes, the batch shards as the reader's
+    ranks (row ``k`` of rank ``i``'s step ``s`` is the global reader's row
+    ``s*batch + i*batch/n + k``), or the whole batch on one device or where
+    the rows do not divide over the shards."""
+    rows = shd.row_block(batch, axis_info)
+    b = rows.stop - rows.start
+    return PipelineConfig(batch_per_rank=b, seq_len=seq, n_ranks=batch // b, rank=rows.start // b, seed=seed)
 
 
 def corpus_tokens(batch: int, seq: int) -> int:
@@ -158,10 +171,8 @@ def train(
         # ---- data: tokenized corpus in the blob store ----
         n_tokens = corpus_tokens(batch, seq)
         corpus = bigram_corpus(cfg.vocab_size, n_tokens, np.random.default_rng(seed))
-        pipe = TokenPipeline(
-            write_token_corpus(session, corpus), n_tokens,
-            PipelineConfig(batch_per_rank=batch, seq_len=seq, n_ranks=1, rank=0, seed=seed),
-        )
+        pipe = TokenPipeline(write_token_corpus(session, corpus), n_tokens,
+                             pipeline_config(batch, seq, seed, axis_info))
 
         # ---- checkpointing: on rank 0, of the logical state ----
         ckpt = None
@@ -190,7 +201,7 @@ def train(
             if fail_at_step is not None and step == fail_at_step:
                 raise RuntimeError(f"injected failure at step {step}")
             batch_dev = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(step).items()}
-            params, opt_state, metrics = step_fn(params, opt_state, batch_dev)
+            params, opt_state, metrics = step_fn(params, opt_state, batch_dev, batch)
             losses.append(float(metrics["loss"]))
             if (step + 1) % checkpoint_every == 0 or step + 1 == steps:
                 state = full_state()

@@ -270,6 +270,7 @@ def init_decode_cache(
     pad_pages_to: int = 1,
     *,
     device,
+    n_stripes: int = 1,
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Allocate an empty paged cache for ``n_layers`` attention layers.
 
@@ -278,7 +279,10 @@ def init_decode_cache(
     the pool's page count (unreferenced tail pages) so that it stripes
     evenly over the page axes. Returns (cache, lengths); each cache leaf is
     stacked over layers: pool_k (L, P, T, K, hd), and for int8 pools the f32
-    dequant scales scale_k/scale_v (L, P, T, K).
+    dequant scales scale_k/scale_v (L, P, T, K). With ``n_stripes`` the
+    page count is padded on to a multiple of it and the pools (and scales)
+    are one stripe of ``P / n_stripes`` pages (every stripe of an empty pool
+    is zeros), the tables numbering the whole pool's pages.
     """
     T = cfg.kv_page_tokens
     dtype = dtype or cfg.kvdtype()
@@ -287,6 +291,7 @@ def init_decode_cache(
     else:
         ring = max(seq_len // T, 1)
     n_pages = -(-(batch * ring) // pad_pages_to) * pad_pages_to
+    n_pages = -(-n_pages // n_stripes)  # one stripe's pages
     K, hd = cfg.n_kv_heads, cfg.head_dim
     tables = torch.arange(batch * ring, dtype=torch.int32, device=device).reshape(batch, ring)
     page_pos = (torch.arange(ring, dtype=torch.int32, device=device) * T)[None, :].repeat(batch, 1)

@@ -17,8 +17,11 @@
   (logits, cache)``, which writes the new token's K/V (and an int8 pool's
   scales) into the cache's pools and the new SSM states into its state
   stacks, in place;
-* ``init_cache(batch, seq_len, device="cuda", pad_pages_to=1) -> cache``;
-* ``train_loss(params, batch, impl="xla", axis_info=None) -> (loss, metrics)``, ``batch``
+* ``init_cache(batch, seq_len, device="cuda", pad_pages_to=1, axis_info=None)
+  -> cache``, with ``axis_info`` this rank's cache as
+  :func:`repro_torch.parallel.sharding.shard_cache` cuts it (the pools'
+  stripe, the SSM states' rows), no more allocated;
+* ``train_loss(params, batch, impl="xla", axis_info=None, denom=None) -> (loss, metrics)``, ``batch``
   the JAX package's dict: ``tokens`` (or ``embeds`` for a ``vlm`` backbone;
   ``enc_embeds`` and ``tokens`` for the encoder-decoder) and ``labels``
   (-1 is padding). Differentiable: autograd runs through it, remat as
@@ -50,17 +53,19 @@ its shape:
   rank's rows of the logits (the vocab whole, as the JAX package's
   ``out_shardings``) and a decode cache without headroom pages (the JAX
   package's distributed rule: the engine's allocator owns headroom) whose
-  pools are already this rank's stripe (:func:`_layer_pages`), with the
-  SSM states of every row;
+  pools are already this rank's stripe (:func:`_layer_pages`) and whose
+  SSM states are those of this rank's rows (``cache_shardings``' blocks);
 * ``decode_step`` keeps the rows replicated on every rank and the weights
   on their ranks: every product is a partial over the weight's block,
   summed, and only activations move (``layers.sharded_products``). It
-  takes the pools striped and the SSM states replicated (the JAX package
-  shards those over the batch axes; each row's state depends on that row
-  alone, so the numbers are the same);
-* ``train_loss`` takes the global batch, as the JAX package's does, and
-  computes on this rank's block of its rows (every row when they do not
-  divide over the batch axes): its loss and metrics are the rank's shares,
+  takes the pools striped and the SSM states as this rank's rows: each
+  Mamba2 layer's conv and scan run on those rows alone, and their gated
+  output is regathered over the batch axes before ``out_proj``
+  (:func:`repro_torch.models.ssm.ssm_decode`);
+* ``train_loss`` takes a global (micro)batch, as the JAX package's does,
+  and computes on this rank's block of its rows (every row when they do
+  not divide over the batch axes), or, with ``denom``, a batch that is
+  already this rank's rows: its loss and metrics are the rank's shares,
   whose sums over the batch axes are the JAX package's values
   (:func:`_shard_batch`). Each layer's ``data`` blocks are gathered inside
   the remat region (their gradients reduce-scattered in the backward),
@@ -255,9 +260,7 @@ def _row_block(n_rows: int, axis_info: Optional[AxisInfo]) -> Optional[slice]:
     None (every row)."""
     if axis_info is None or n_rows % axis_info.n_batch_shards:
         return None
-    b = n_rows // axis_info.n_batch_shards
-    i = axis_info.mesh.axes_index(axis_info.batch_axes)
-    return slice(i * b, (i + 1) * b)
+    return shd.row_block(n_rows, axis_info)
 
 
 def _take_rows(inputs, rows: Optional[slice]):
@@ -375,24 +378,28 @@ class _Shard:
         return x / torch.full((), self.n, dtype=x.dtype, device=x.device)
 
 
-def _shard_batch(batch: Dict[str, torch.Tensor], axis_info: Optional[AxisInfo]) -> _Shard:
+def _shard_batch(batch: Dict[str, torch.Tensor], axis_info: Optional[AxisInfo],
+                 denom: Optional[torch.Tensor] = None) -> _Shard:
     """The rank's part of a global (micro)batch under ``axis_info``, the
     JAX package's ``constrain_batch``: its block of rows over the batch
     axes when they divide the batch, else every row (the JAX package then
     keeps the batch replicated). Its label sums are divided by the count of
     valid labels in the whole batch (times the number of shares when every
     rank holds every row), counted here: every rank holds the whole batch.
-    The shares, summed over the batch axes, are the JAX package's values."""
+    With ``denom`` the batch is already this rank's rows, and ``denom`` the
+    count of valid labels in the microbatch they are a data shard of. The
+    shares, summed over the batch axes, are the JAX package's values."""
     if axis_info is None:
         return _Shard(batch)
     n = axis_info.n_batch_shards
+    if denom is not None:
+        return _Shard(batch, denom, n, True)
     count = (batch["labels"] >= 0).sum().clamp_min(1)
     rows = batch["labels"].shape[0]
     if rows % n:
         return _Shard(batch, count * n, n, False)
-    i = axis_info.mesh.axes_index(axis_info.batch_axes)
-    b = rows // n
-    return _Shard({k: v[i * b:(i + 1) * b] for k, v in batch.items()}, count, n, True)
+    block = shd.row_block(rows, axis_info)
+    return _Shard({k: v[block] for k, v in batch.items()}, count, n, True)
 
 
 def _no_aux(x: torch.Tensor) -> torch.Tensor:
@@ -457,15 +464,16 @@ def _paged_cache(layers) -> Dict[str, torch.Tensor]:
     return {k: torch.stack([layer[k] for layer in layers]) for k in layers[0]}
 
 
-def _rows_states(states, rows: Optional[slice], axis_info: Optional[AxisInfo]):
-    """SSM states (L, rows, ...) of this rank's rows regathered to every
-    row (decode keeps them replicated)."""
-    if rows is None:
-        return states
-    names = list(states)
-    whole = collectives.regather_many([states[k].movedim(1, 0) for k in names], axis_info.batch_axes,
-                                      axis_info.mesh)
-    return {k: w.movedim(0, 1).contiguous() for k, w in zip(names, whole)}
+def _stripes(axis_info: Optional[AxisInfo]) -> int:
+    """The stripes a pool is cut into across ranks (1 on one device)."""
+    return 1 if axis_info is None else axis_info.n_page_shards
+
+
+def _init_states(cfg: ModelConfig, batch: int, axis_info: Optional[AxisInfo], dev):
+    """Zero SSM states of the rows of ``batch`` this rank holds (all of
+    them on one device: :func:`repro_torch.parallel.sharding.row_block`)."""
+    rows = shd.row_block(batch, axis_info)
+    return ssm_mod.init_ssm_state(cfg, rows.stop - rows.start, cfg.n_layers, device=dev)
 
 
 def _lengths(Bb: int, S: int, device) -> torch.Tensor:
@@ -510,10 +518,11 @@ def _decoder_lm(cfg: ModelConfig) -> Model:
         return params if specs is None else dict(params, embed=_blocks(params["embed"], specs["embed"], axis_info),
                                                  ln_f=_blocks(ln_f, specs["ln_f"], axis_info))
 
-    def init_cache(batch: int, seq_len: int, device="cuda", pad_pages_to: int = 1):
+    def init_cache(batch: int, seq_len: int, device="cuda", pad_pages_to: int = 1,
+                   axis_info: Optional[AxisInfo] = None):
         cache, lengths = attn.init_decode_cache(
-            cfg, batch, seq_len, cfg.n_layers, pad_pages_to=pad_pages_to, device=resolve_device(device)
-        )
+            cfg, batch, seq_len, cfg.n_layers, pad_pages_to=pad_pages_to, device=resolve_device(device),
+            n_stripes=_stripes(axis_info))
         return {"kv": cache, "lengths": lengths}
 
     @torch.no_grad()
@@ -561,16 +570,17 @@ def _decoder_lm(cfg: ModelConfig) -> Model:
         logits = unembed(params["embed"], h, cfg, axis_info)[:, 0]
         return logits, {"kv": dict(kv, page_pos=torch.stack(page_pos)), "lengths": lengths + 1}
 
-    def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla", axis_info=None):
+    def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla", axis_info=None, denom=None):
         """``loss = ce + MOE_AUX_WEIGHT * aux``; metrics ``ce``, ``aux``
         (the MoE load-balance loss summed over layers, 0 for a dense model),
         ``acc``. Under ``axis_info`` the loss and metrics are this rank's
-        shares (:func:`_shard_batch`): the MoE routes the rank's tokens and
-        averages its aux over the batch axes, of which the rank takes its
-        share, so that the sum over the batch axes counts it once."""
+        shares (:func:`_shard_batch`; ``denom``: ``batch`` is the rank's
+        rows): the MoE routes the rank's tokens and averages its aux over
+        the batch axes, of which the rank takes its share, so that the sum
+        over the batch axes counts it once."""
         impl = _train_impl(cfg, impl)
         specs = _held(params, cfg, axis_info)
-        shard = _shard_batch(batch, axis_info)
+        shard = _shard_batch(batch, axis_info, denom)
         h = _batch_h(params, shard.batch, cfg, axis_info)
         layer = _train_layers(specs and specs["blocks"], axis_info)
         body = lambda p, x: B.block_apply(layer(p), x, cfg, axis_info, impl=impl,  # noqa: E731
@@ -610,9 +620,10 @@ def _ssm_lm(cfg: ModelConfig) -> Model:
         return params if specs is None else dict(params, embed=_blocks(params["embed"], specs["embed"], axis_info),
                                                  ln_f=_blocks(ln_f, specs["ln_f"], axis_info))
 
-    def init_cache(batch: int, seq_len: int, device="cuda", pad_pages_to: int = 1):
+    def init_cache(batch: int, seq_len: int, device="cuda", pad_pages_to: int = 1,
+                   axis_info: Optional[AxisInfo] = None):
         dev = resolve_device(device)
-        return {"ssm": ssm_mod.init_ssm_state(cfg, batch, cfg.n_layers, device=dev),
+        return {"ssm": _init_states(cfg, batch, axis_info, dev),
                 "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
     @torch.no_grad()
@@ -621,8 +632,7 @@ def _ssm_lm(cfg: ModelConfig) -> Model:
         """Returns the last position's f32 logits and a cache of the f32
         SSM states ``{"ssm": (L, B, H, N, P), "conv": (L, B, Kc-1, C)}``.
         No attention: ``impl`` is taken for the common signature. Under
-        ``axis_info`` this rank's rows of the logits, and the states of
-        every row (decode keeps them replicated)."""
+        ``axis_info`` this rank's rows of the logits and of the states."""
         specs = _held(params, cfg, axis_info)
         n_rows = inputs.shape[0]
         rows = _row_block(n_rows, axis_info)
@@ -635,13 +645,13 @@ def _ssm_lm(cfg: ModelConfig) -> Model:
             del lp
         h = rmsnorm(h, _whole_norm(params["ln_f"], axis_info, cfg))
         logits = unembed(params["embed"], h[:, -1:], cfg, axis_info)[:, 0]
-        return logits, {"ssm": _rows_states(states, rows, axis_info), "lengths": _lengths(n_rows, S, h.device)}
+        return logits, {"ssm": states, "lengths": _lengths(n_rows, S, h.device)}
 
     @torch.no_grad()
     def decode_step(params, cache, tokens: torch.Tensor, impl: Optional[str] = None,
                     axis_info: Optional[AxisInfo] = None):
-        """tokens (B,). Updates the cache's SSM states in place (replicated
-        under ``axis_info``: the same numbers on every rank)."""
+        """tokens (B,). Updates the cache's SSM states in place (under
+        ``axis_info`` this rank's rows of them)."""
         params = _decode_params(params, _held(params, cfg, axis_info), axis_info)
         h = embed(params["embed"], tokens[:, None], cfg, axis_info)
         states = cache["ssm"]
@@ -651,13 +661,13 @@ def _ssm_lm(cfg: ModelConfig) -> Model:
         logits = unembed(params["embed"], h, cfg, axis_info)[:, 0]
         return logits, {"ssm": dict(states), "lengths": cache["lengths"] + 1}
 
-    def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla", axis_info=None):
+    def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla", axis_info=None, denom=None):
         """The cross-entropy; metrics ``ce``, ``acc`` (the rank's shares
         under ``axis_info``). No attention: ``impl`` is checked for the
         common signature."""
         _train_impl(cfg, impl)
         specs = _held(params, cfg, axis_info)
-        shard = _shard_batch(batch, axis_info)
+        shard = _shard_batch(batch, axis_info, denom)
         h = _batch_h(params, shard.batch, cfg, axis_info)
         layer = _train_layers(specs and specs["blocks"], axis_info)
         body = lambda p, x: (B.ssm_block_apply(layer(p), x, cfg, axis_info=axis_info), _no_aux(x))  # noqa: E731
@@ -693,12 +703,12 @@ def _hybrid_lm(cfg: ModelConfig) -> Model:
             return params
         return dict(params, **{k: _blocks(params[k], specs[k], axis_info) for k in ("embed", "shared_attn", "ln_f")})
 
-    def init_cache(batch: int, seq_len: int, device="cuda", pad_pages_to: int = 1):
+    def init_cache(batch: int, seq_len: int, device="cuda", pad_pages_to: int = 1,
+                   axis_info: Optional[AxisInfo] = None):
         dev = resolve_device(device)
         kv, lengths = attn.init_decode_cache(cfg, batch, seq_len, n_groups, pad_pages_to=pad_pages_to,
-                                             device=dev)
-        return {"ssm": ssm_mod.init_ssm_state(cfg, batch, cfg.n_layers, device=dev),
-                "kv": kv, "lengths": lengths}
+                                             device=dev, n_stripes=_stripes(axis_info))
+        return {"ssm": _init_states(cfg, batch, axis_info, dev), "kv": kv, "lengths": lengths}
 
     @torch.no_grad()
     def prefill(params, inputs: torch.Tensor, impl: Optional[str] = None,
@@ -707,7 +717,8 @@ def _hybrid_lm(cfg: ModelConfig) -> Model:
         attention), whose K/V become that group's paged KV layer. Returns
         the last position's f32 logits and ``{"ssm": (L, ...) states, "kv":
         n_groups paged layers, "lengths"}``; S a multiple of
-        ``kv_page_tokens``; no headroom page under ``axis_info``."""
+        ``kv_page_tokens``; no headroom page under ``axis_info``, and the
+        states of this rank's rows."""
         specs = _held(params, cfg, axis_info)
         n_rows = inputs.shape[0]
         rows = _row_block(n_rows, axis_info)
@@ -728,17 +739,14 @@ def _hybrid_lm(cfg: ModelConfig) -> Model:
             pages.append(_layer_pages(cfg, k, v, _pages_extra(axis_info), axis_info, rows, n_rows))
         h = rmsnorm(h, _whole_norm(params["ln_f"], axis_info, cfg))
         logits = unembed(params["embed"], h[:, -1:], cfg, axis_info)[:, 0]
-        cache = {"ssm": _rows_states(states, rows, axis_info),
-                 "kv": _paged_cache(pages),
-                 "lengths": _lengths(n_rows, S, h.device)}
-        return logits, cache
+        return logits, {"ssm": states, "kv": _paged_cache(pages), "lengths": _lengths(n_rows, S, h.device)}
 
     @torch.no_grad()
     def decode_step(params, cache, tokens: torch.Tensor, impl: Optional[str] = None,
                     axis_info: Optional[AxisInfo] = None):
         """tokens (B,). SSM states, pools (and int8 scales) updated in
         place; ``page_pos`` re-stacked. Under ``axis_info`` the pools are
-        striped and the SSM states replicated."""
+        striped and the SSM states this rank's rows."""
         params = _decode_params(params, _held(params, cfg, axis_info), axis_info)
         h = embed(params["embed"], tokens[:, None], cfg, axis_info)
         lengths, kv, states = cache["lengths"], cache["kv"], cache["ssm"]
@@ -754,13 +762,13 @@ def _hybrid_lm(cfg: ModelConfig) -> Model:
         return logits, {"ssm": dict(states), "kv": dict(kv, page_pos=torch.stack(page_pos)),
                         "lengths": lengths + 1}
 
-    def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla", axis_info=None):
+    def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla", axis_info=None, denom=None):
         """Each group's Mamba2 layers (remat groups within it), then the
         shared block under its own checkpoint; metrics ``ce``, ``acc`` (the
         rank's shares under ``axis_info``)."""
         impl = _train_impl(cfg, impl)
         specs = _held(params, cfg, axis_info)
-        shard = _shard_batch(batch, axis_info)
+        shard = _shard_batch(batch, axis_info, denom)
         h = _batch_h(params, shard.batch, cfg, axis_info)
         flat = _tree_map(lambda _, t: t.reshape(cfg.n_layers, *t.shape[2:]), params["mamba"])
         mamba = B.unstack(flat, cfg.n_layers)
@@ -802,11 +810,13 @@ def _encdec_lm(cfg: ModelConfig) -> Model:
             return params
         return dict(params, **{k: _blocks(params[k], specs[k], axis_info) for k in ("embed", "ln_enc", "ln_dec")})
 
-    def init_cache(batch: int, seq_len: int, device="cuda", pad_pages_to: int = 1):
+    def init_cache(batch: int, seq_len: int, device="cuda", pad_pages_to: int = 1,
+                   axis_info: Optional[AxisInfo] = None):
         dev = resolve_device(device)
         self_kv, lengths = attn.init_decode_cache(cfg, batch, seq_len, n_dec, pad_pages_to=pad_pages_to,
-                                                  device=dev)
-        cross_kv, _ = attn.init_decode_cache(cfg, batch, seq_len, n_dec, pad_pages_to=pad_pages_to, device=dev)
+                                                  device=dev, n_stripes=_stripes(axis_info))
+        cross_kv, _ = attn.init_decode_cache(cfg, batch, seq_len, n_dec, pad_pages_to=pad_pages_to, device=dev,
+                                             n_stripes=_stripes(axis_info))
         return {"self_kv": self_kv, "cross_kv": cross_kv, "lengths": lengths,
                 "enc_len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
@@ -853,9 +863,8 @@ def _encdec_lm(cfg: ModelConfig) -> Model:
             del lp
         cross_kv = _paged_cache(cross)
         if tokens is None:
-            self_kv, lengths = attn.init_decode_cache(cfg, n_rows, S_enc, n_dec, device=dev)
-            if axis_info is not None:
-                self_kv = shd.shard_cache(self_kv, cfg, axis_info)
+            self_kv, lengths = attn.init_decode_cache(cfg, n_rows, S_enc, n_dec, device=dev,
+                                                      n_stripes=_stripes(axis_info))
             logits = torch.zeros((Bb, cfg.padded_vocab), dtype=torch.float32, device=dev)
         else:
             self_kv = _paged_cache(pages)
@@ -884,13 +893,13 @@ def _encdec_lm(cfg: ModelConfig) -> Model:
         logits = unembed(params["embed"], h, cfg, axis_info)[:, 0]
         return logits, dict(cache, self_kv=dict(self_kv, page_pos=torch.stack(page_pos)), lengths=lengths + 1)
 
-    def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla", axis_info=None):
+    def train_loss(params, batch: Dict[str, torch.Tensor], impl: str = "xla", axis_info=None, denom=None):
         """Encode ``batch["enc_embeds"]``, then the decoder over
         ``batch["tokens"]``, each decoder layer under its own checkpoint;
         metrics ``ce``, ``acc`` (the rank's shares under ``axis_info``)."""
         impl = _train_impl(cfg, impl)
         specs = _held(params, cfg, axis_info)
-        shard = _shard_batch(batch, axis_info)
+        shard = _shard_batch(batch, axis_info, denom)
         batch = shard.batch
         enc_layer = _train_layers(specs and specs["encoder"], axis_info)
         dec_layer = _train_layers(specs and specs["decoder"], axis_info)

@@ -28,6 +28,13 @@ rank's block of the gated output: summed over ``model``, regathered over
 with the layer, and the same code differentiates: the regathered output's
 backward takes this rank's block, the gated output's block regathers its
 cotangent (:mod:`repro_torch.parallel.collectives`).
+
+In decode the rows are replicated for the projections, and the states are
+this rank's rows over the batch axes (``cache_shardings``' blocks; every
+row where the batch does not divide): the conv, the scan, ``D`` and the
+gated norm run on those rows alone, against their own states, and the
+model-axis block of their gated output is regathered over the batch axes
+before ``out_proj`` (one all-reduce of ``(B, d_inner / model)`` a layer).
 """
 
 from __future__ import annotations
@@ -41,8 +48,9 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import block_of, sharded_products, split
 from repro_torch.models.modules import dense_init
+from repro_torch.parallel import collectives
 from repro_torch.parallel.axisinfo import AxisInfo
-from repro_torch.parallel.sharding import FSDP_AXIS
+from repro_torch.parallel.sharding import FSDP_AXIS, row_block
 
 SSMState = Dict[str, torch.Tensor]  # {"ssm": (B, H, N, P), "conv": (B, Kc-1, conv_dim)}
 
@@ -220,15 +228,21 @@ def _in_proj(params, x: torch.Tensor, cfg: ModelConfig, axis_info: Optional[Axis
     return sharded_products(block_of(x, -1, da, mesh), [w], mesh, sum_axes=da, out_axes=pa)[0]
 
 
-def _out_proj(params, y: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisInfo]) -> torch.Tensor:
-    """``y @ out_proj``, whole (module docstring)."""
+def _out_proj(params, y: torch.Tensor, cfg: ModelConfig, axis_info: Optional[AxisInfo],
+              rows: Optional[slice] = None) -> torch.Tensor:
+    """``y @ out_proj``, whole (module docstring). ``rows``: ``y`` holds
+    only these rows of the batch, whose model-axis block is regathered over
+    the batch axes first (decode)."""
     w = params["out_proj"].to(cfg.cdtype())
     if axis_info is None:
         return y @ w
     mesh = axis_info.mesh
     ia = split(w.shape[0], cfg.d_inner, axis_info.model_axis)
     da = split(w.shape[1], cfg.d_model, FSDP_AXIS)
-    return sharded_products(block_of(y, -1, ia, mesh), [w], mesh, sum_axes=ia, out_axes=da)[0]
+    y = block_of(y, -1, ia, mesh)
+    if rows is not None:
+        y = collectives.regather(y.contiguous(), axis_info.batch_axes, mesh)
+    return sharded_products(y, [w], mesh, sum_axes=ia, out_axes=da)[0]
 
 
 def ssm_forward(params, x: torch.Tensor, cfg: ModelConfig, *, return_state: bool = False,
@@ -273,9 +287,19 @@ def ssm_decode(
     cfg: ModelConfig,
     axis_info: Optional[AxisInfo] = None,
 ) -> Tuple[torch.Tensor, SSMState]:
-    """One-token Mamba2 step: returns (out (B, 1, d), the layer's new state)."""
+    """One-token Mamba2 step: returns (out (B, 1, d), the layer's new state).
+    Under ``axis_info`` ``state`` may hold this rank's rows alone (module
+    docstring)."""
     ct = cfg.cdtype()
     zxbcdt = _in_proj(params, x, cfg, axis_info)[:, 0]
+    B = zxbcdt.shape[0]
+    rows = None
+    if state["ssm"].shape[0] != B:  # this rank's rows: its block over the batch axes
+        rows = row_block(B, axis_info)
+        if rows.stop - rows.start != state["ssm"].shape[0]:
+            raise ValueError(f"SSM states of {state['ssm'].shape[0]} rows are neither the batch's {B} "
+                             f"nor this rank's block of it")
+        zxbcdt = zxbcdt[rows]
     z, xBC, dt = _split_proj(zxbcdt, cfg)
 
     conv_hist = torch.cat([state["conv"].to(ct), xBC[:, None, :]], dim=1)  # (B, Kc, C)
@@ -289,5 +313,5 @@ def ssm_decode(
     y, new_ssm = ssd_decode_step(state["ssm"].float(), xs.float(), dtv, A, Bm.float(), Cm.float())
     y = y + params["D"][None, :, None] * xs.float()
     y = _gated_norm(y.reshape(-1, cfg.d_inner).to(ct), z, params["norm"])
-    out = _out_proj(params, y, cfg, axis_info)[:, None]
+    out = _out_proj(params, y, cfg, axis_info, rows)[:, None]
     return out, {"ssm": new_ssm.to(state["ssm"].dtype), "conv": new_conv.to(state["conv"].dtype)}

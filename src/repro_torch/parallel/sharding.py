@@ -25,11 +25,11 @@ The model code, in training and serving alike, reads which dims a leaf
 holds whole and which as a block from its shape (:func:`held_specs`), so
 either layout (or a mix) runs through the same code.
 
-The KV page pools and int8 scales are striped over every axis
-(:func:`shard_cache`: ``cache_shardings``' entries for them). The SSM
-states stay replicated, where ``cache_shardings`` shards them over the
-batch axes: each row's state is updated by its own row alone, so the
-numbers are the same.
+A decode cache is laid out as ``cache_shardings`` lays it
+(:func:`shard_cache`): the KV page pools and int8 scales striped over
+every axis, the SSM states ``ssm`` and ``conv`` this rank's rows over the
+batch axes (every row where the batch does not divide over them), the
+tables, ``page_pos`` and lengths whole.
 
 :func:`shard_leaf` takes this rank's block of a value, which is what
 ``jax.device_put`` onto a ``NamedSharding`` does.
@@ -43,6 +43,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.parallel.axisinfo import AxisInfo, Mesh
 
 POOL_LEAVES = ("pool_k", "pool_v", "scale_k", "scale_v")
+STATE_LEAVES = ("ssm", "conv")  # a decode cache's SSM states, (L, B, ...)
 FSDP_AXIS = "data"  # the mesh axis of the ``embed`` dims (FSDP within a pod)
 # leaves used whole: the norm scales, the conv taps and bias, the gated norm's
 # scale (a few KB a layer); regathered before use
@@ -57,6 +58,11 @@ class P(tuple):
 
     def __new__(cls, *entries):
         return super().__new__(cls, (e[0] if isinstance(e, tuple) and len(e) == 1 else e for e in entries))
+
+    def __getnewargs__(self) -> tuple:
+        """The entries as ``__new__`` takes them, one argument each, so that
+        a spec survives ``pickle`` (and ``torch.save``) unchanged."""
+        return tuple(self)
 
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}" if len(self) != 1 else f"P({self[0]!r})"
@@ -151,8 +157,7 @@ def batch_shardings(batch_spec, cfg: ModelConfig, axis_info: AxisInfo):
 
 def cache_shardings(cache_shape, cfg: ModelConfig, axis_info: AxisInfo):
     """Decode-cache trees: page pools over all axes; small state replicated;
-    SSM states over batch when divisible (the port keeps them replicated:
-    :func:`shard_cache`)."""
+    SSM states over batch when divisible."""
     n_pages = axis_info.n_page_shards
     n_batch = axis_info.n_batch_shards
 
@@ -160,7 +165,7 @@ def cache_shardings(cache_shape, cfg: ModelConfig, axis_info: AxisInfo):
         shape = _shape(s)
         if path[-1] in POOL_LEAVES:  # (L, P, T, K[, hd]): stripe pages over every axis
             return P(None, axis_info.page_axes) if shape[1] % n_pages == 0 else P()
-        if path[-1] in ("ssm", "conv"):  # (L, B, ...)
+        if path[-1] in STATE_LEAVES:  # (L, B, ...)
             return P(None, axis_info.batch_axes) if shape[1] % n_batch == 0 else P()
         return P()  # tables, page_pos, lengths, enc_len
 
@@ -363,17 +368,30 @@ def pad_pages(cache, multiple: int):
 
 
 def shard_cache(cache, cfg: ModelConfig, axis_info: AxisInfo):
-    """This rank's decode cache: the page pools and int8 scales padded to a
-    multiple of the page shards and striped over ``page_axes`` (the block
-    ``cache_shardings`` gives them); tables, ``page_pos``, lengths and SSM
-    states replicated (see the module docstring). The stripes are copies,
-    so that a decode step's in-place writes never reach the full pool."""
+    """This rank's decode cache, the blocks ``cache_shardings`` gives: the
+    page pools and int8 scales padded to a multiple of the page shards and
+    striped over ``page_axes``, the SSM states this rank's rows over the
+    batch axes (all of them where the batch does not divide), the tables,
+    ``page_pos`` and lengths whole. The blocks are copies, so that a decode
+    step's in-place writes never reach the full cache."""
     cache = pad_pages(cache, axis_info.n_page_shards)
     specs = cache_shardings(cache, cfg, axis_info)
 
     def one(path, x, s):
-        if path[-1] not in POOL_LEAVES:
+        if path[-1] not in POOL_LEAVES + STATE_LEAVES or not len(s):
             return x
         return shard_leaf(x, s, axis_info).clone()
 
     return _map(one, cache, specs)
+
+
+def row_block(batch: int, axis_info) -> slice:
+    """The rows of a batch of ``batch`` rows this rank holds (its inputs
+    under ``batch_shardings``, its SSM states under ``cache_shardings``):
+    its block over the batch axes when they divide ``batch``, else every
+    row."""
+    n = 1 if axis_info is None else axis_info.n_batch_shards
+    if batch % n:
+        return slice(0, batch)
+    i = axis_info.mesh.axes_index(axis_info.batch_axes) if n > 1 else 0
+    return slice(i * (batch // n), (i + 1) * (batch // n))

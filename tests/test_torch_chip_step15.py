@@ -1,9 +1,11 @@
 """``chip_smoke.py``'s step 15 (serving across ranks, the weights in the
 serving layout) end to end on 4 CPU ranks at smoke size: the card's calls
-stubbed, the three cells cut to the smoke configs (64-token prompts, 4
+stubbed, the five cells cut to the smoke configs (zamba2's twice, (d') in
+bf16 compute; 64-token prompts, 4
 decode steps), the kernels' wrappers counting their calls as the card's
 do. Every check of the step passes: the unsharded oracles run first in
-this process, each rank's weights are the layout's bytes, its flash call on
+this process, each rank's weights are the layout's bytes, both zamba2 cells'
+SSM states its rows' (the layout's bytes, half the oracle's), its flash call on
 its local heads and its paged call on its stripe agree with the plain
 versions, the launches are the path's, the replicas' logits are bit-equal
 and within ``SHARD_LOGITS_TOL`` of the oracles'."""
@@ -51,7 +53,10 @@ def _chip_smoke_on_the_cpu():
     mixtral = dataclasses.replace(get_config("mixtral-8x7b").smoke(), n_layers=2)
     cs.SHARD_MIXTRAL_LAYERS = mixtral.n_layers
     cs.shard_cells = lambda: (("llama", get_config("llama3_2-1b").smoke(), 64), ("mixtral", mixtral, 64),
-                              ("mistral", get_config("mistral-large-123b").smoke(), 64))
+                              ("mistral", get_config("mistral-large-123b").smoke(), 64),
+                              ("zamba2", get_config("zamba2-2.7b").smoke(), 64),
+                              ("zamba2_bf16", dataclasses.replace(get_config("zamba2-2.7b").smoke(),
+                                                                  compute_dtype="bfloat16"), 64))
     ops.flash_attention_cuda = _counting(fa.flash_attention_cuda)
     ops.paged_attention_cuda = _counting(pa.paged_attention_cuda)
     return cs
@@ -78,10 +83,15 @@ def test_chip_smoke_step15_at_smoke_size(monkeypatch):
         for n, f in kernels.items():
             setattr(ops, n, f)
     json.dumps(out)  # the script prints it in its results line
-    for name, layers in (("llama", 4), ("mixtral", 2), ("mistral", 4)):
-        row = out[name]
+    for name, cfg, _ in cs.shard_cells():
+        row, layers = out[name], cs.attention_layers(cfg)
         assert row["max_err"] <= cs.SHARD_LOGITS_TOL and row["prefill_err"] <= cs.SHARD_LOGITS_TOL
         assert all(p == {"flash_attention": layers, "paged_attention": 0} for p in row["prefill_launches"])
         assert all(d == {"flash_attention": 0, "paged_attention": layers * 4} for d in row["launches"])
         assert len(set(row["weight_bytes"])) == 1 and 3 * row["weight_bytes"][0] < row["oracle_weight_bytes"]
-        assert all(f["shape"]["H"] == 2 for f in row["flash_check"])  # 4 smoke heads over 2 model ranks
+        assert all(f["shape"]["H"] == cfg.n_heads // 2 for f in row["flash_check"])  # over 2 model ranks
+    for i in (3, 4):
+        name, cfg, _ = cs.shard_cells()[i]
+        zamba2 = out[name]
+        assert zamba2["layout_state_bytes"] == cs.layout_state_bytes(cfg, 4) > 0
+        assert zamba2["state_bytes"] == zamba2["state_bytes_after_decode"] == [zamba2["layout_state_bytes"]] * 4

@@ -225,8 +225,10 @@ def _train_all_reduce_bytes(cfg, rows: int, seq: int) -> int:
     cotangents in the backward; ``ln_f`` gathered and its gradient summed;
     the unembedding's input cotangent summed; the vocab-parallel
     cross-entropy's largest logit a token maximised over ``model``, and its
-    three floats a token gathered from both model ranks. Then the table's
-    gradient over ``data`` (every other leaf is
+    three floats a token gathered from both model ranks. Before them the
+    count of valid labels in each data shard's rows of each microbatch
+    (one float each, one all-reduce: the step takes the rank's rows
+    alone). Then the table's gradient over ``data`` (every other leaf is
     a block over ``data``, reduce-scattered already), the four metrics,
     and three partial norms (the leaves split over ``data``, ``model`` and
     both)."""
@@ -235,7 +237,7 @@ def _train_all_reduce_bytes(cfg, rows: int, seq: int) -> int:
     T = rows // A // 2 * seq  # a rank's tokens a microbatch
     layer = 2 * (d // 2) + (d // 2) * (H // 2 + 2 * (K // 2)) * hd + (H // 2) * hd * (d // 2) + 3 * (d // 2) * (f // 2)
     per_micro = T * d + cfg.n_layers * (2 * 2 * layer + 4 * T * d) + 2 * d + T * d + T + 2 * 3 * T
-    return 4 * (A * per_micro + (V // 2) * d + 4 + 3)
+    return 4 * (A * 2 + A * per_micro + (V // 2) * d + 4 + 3)
 
 
 # ------------------------------ full size ------------------------------
@@ -351,26 +353,15 @@ def _block_numels(cfg):
                     param_shapes(cfg), shd.jax_specs(cfg, ai))
 
 
-def _state_bytes(cfg) -> int:
-    """The SSM states of a decode cache of B4 rows (f32)."""
-    if cfg.family not in ("ssm", "hybrid"):
-        return 0
-    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
-    return 4 * cfg.n_layers * B4 * (cfg.ssm_heads * cfg.ssm_state * cfg.ssm_headdim + (cfg.ssm_conv - 1) * conv_dim)
-
-
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_train_argument_bytes_a_rank_equal_jax(arch, serving_cells):
     """The train step in the JAX package's layout: the params and both
     AdamW moments a rank holds are JAX's per device, to the byte (each
     leaf's shard under ``param_shardings``, as the JAX launcher lays them,
-    ``NamedSharding.shard_shape``). The port's step takes the global batch
-    on every rank, as the JAX step's input; a JAX device holds its data
-    shard's half of it: the difference is that half, exactly."""
+    ``NamedSharding.shard_shape``), and so is its batch: its data shard's
+    rows alone, as a JAX device holds them under ``batch_shardings``."""
     recs, jax_args = serving_cells
-    cfg = get_config(arch).smoke()
-    batch = sum(t.numel() * t.element_size() for t in specs.train_batch_spec(cfg, B4, S).values())
-    assert recs[arch, "train"] == jax_args[arch]["train"] + batch // 2
+    assert recs[arch, "train"] == jax_args[arch]["train"]
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
@@ -378,11 +369,11 @@ def test_train_argument_bytes_a_rank_equal_jax(arch, serving_cells):
 def test_serving_argument_bytes_a_rank_equal_jax(arch, kind, serving_cells):
     """A prefill holds JAX's arguments to the byte (its param blocks and its
     rows of the batch: llama's are 214,656 bytes). A decode step holds
-    JAX's plus what the port keeps replicated over the two batch shards on
-    purpose (the tokens and the SSM states) and less the arguments
-    ``jax.jit`` drops from an encoder-decoder's decode, which never reads
-    them (the encoder, its norm and the cross K/V projections: their
-    blocks, a quarter of each, but the norm's half)."""
+    JAX's (the SSM states its rows') plus what the port keeps replicated
+    over the two batch shards on purpose (the tokens) and less the
+    arguments ``jax.jit`` drops from an encoder-decoder's decode, which
+    never reads them (the encoder, its norm and the cross K/V projections:
+    their blocks, a quarter of each, but the norm's half)."""
     recs, jax_args = serving_cells
     cfg = get_config(arch).smoke()
     got = recs[arch, kind]["bytes_per_device"]["arguments"]
@@ -391,7 +382,7 @@ def test_serving_argument_bytes_a_rank_equal_jax(arch, kind, serving_cells):
         if arch == "llama3_2-1b":
             assert got == 214_656
         return
-    replicated = (B4 * 4 + _state_bytes(cfg)) // 2
+    replicated = B4 * 4 // 2
     unread = 0
     if cfg.family in ("encdec", "audio"):
         blocks = _block_numels(cfg)

@@ -158,8 +158,11 @@ def _grads_rank(ai, chosen, launch_ref):
 def _resume_on(run, cfg, ai, step: int) -> list:
     """The launcher's step-``step`` checkpoint (the JAX layout on the run's
     mesh) restored onto ``ai``'s mesh, and trained from there to the end
-    on the run's batches, with the launcher's config and schedule; the
-    losses of those steps."""
+    on the run's batches (each rank reading its rows of them, as the
+    launcher reads them on ``ai``'s mesh), with the launcher's config and
+    schedule; the losses of those steps."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.train import pipeline_config
     from repro_torch.models.lm import build_model
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.trainer import make_train_step
@@ -169,10 +172,12 @@ def _resume_on(run, cfg, ai, step: int) -> list:
     cfg = dataclasses.replace(cfg, grad_accum=min(cfg.grad_accum, max(LAUNCH["batch"] // 2, 1)))
     opt_cfg = AdamWConfig(lr=LAUNCH["lr"], total_steps=LAUNCH["steps"], warmup_steps=max(LAUNCH["steps"] // 10, 1))
     step_fn = make_train_step(build_model(cfg), cfg, opt_cfg, ai)
+    pipe = run["pipeline"]
+    mine = TokenPipeline(pipe.handle, pipe.n_tokens, pipeline_config(LAUNCH["batch"], LAUNCH["seq"], pipe.cfg.seed, ai))
     losses = []
     for s in range(step, LAUNCH["steps"]):
-        batch = {k: torch.from_numpy(v) for k, v in run["pipeline"].batch_at(s).items()}
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        batch = {k: torch.from_numpy(v) for k, v in mine.batch_at(s).items()}
+        params, opt_state, metrics = step_fn(params, opt_state, batch, LAUNCH["batch"])
         losses.append(float(metrics["loss"]))
     return losses
 

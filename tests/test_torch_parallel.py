@@ -228,6 +228,81 @@ def test_shard_cache_pads_and_stripes_the_pools():
         assert local["kv"]["tables"] is cache["kv"]["tables"] and local["lengths"] is cache["lengths"]
 
 
+def test_shard_cache_takes_the_ranks_rows_of_the_ssm_states():
+    """``cache_shardings``' blocks of a hybrid cache: the states' rows over
+    ``data`` (copies) where the batch divides, every row where it does not;
+    the pools striped."""
+    cfg = get_config("zamba2-2.7b").smoke()
+    model = build_model(cfg)
+    for batch in (4, 3):
+        cache = model.init_cache(batch, 4 * cfg.kv_page_tokens, device="cpu")
+        for name in shd.STATE_LEAVES:
+            cache["ssm"][name].normal_(generator=torch.Generator().manual_seed(batch))
+        for r in range(4):
+            ai = mesh_info("2x2", rank=r)
+            local = shd.shard_cache(cache, cfg, ai)
+            rows = shd.row_block(batch, ai)
+            assert (rows.stop - rows.start) == (batch // 2 if batch % 2 == 0 else batch)
+            for name in shd.STATE_LEAVES:
+                want = cache["ssm"][name][:, rows]
+                assert torch.equal(local["ssm"][name], want)
+                if batch % 2 == 0:
+                    assert local["ssm"][name].data_ptr() != want.data_ptr()
+            assert local["kv"]["pool_k"].shape[1] == -(-cache["kv"]["pool_k"].shape[1] // 4)
+
+
+@pytest.mark.parametrize("arch", ["llama3_2-1b", "mistral-large-123b", "mamba2-370m", "zamba2-2.7b",
+                                  "seamless-m4t-medium"])
+def test_init_cache_with_an_axis_info_is_the_shard_of_the_whole(arch):
+    """``init_cache(axis_info=)`` allocates what ``shard_cache`` of the
+    whole empty cache keeps on each rank (the pools' stripe, the states'
+    rows, every other leaf whole), leaf for leaf, shape, dtype and values,
+    with and without padding, with batches that divide and that do not."""
+    cfg = get_config(arch).smoke()
+    model = build_model(cfg)
+    T = cfg.kv_page_tokens
+    for batch, seq, pad in ((4, 4 * T, 1), (3, 5 * T, 3)):
+        whole = model.init_cache(batch, seq, device="cpu", pad_pages_to=pad)
+        for mname in MESHES:
+            for r in range(int(np.prod(MESHES[mname][0]))):
+                ai = mesh_info(mname, rank=r)
+                want = shd.shard_cache(whole, cfg, ai)
+                got = model.init_cache(batch, seq, device="cpu", pad_pages_to=pad, axis_info=ai)
+                flat = {}
+                shd._map(lambda path, a, b: flat.__setitem__(path, (a, b)), got, want)
+                assert flat
+                for path, (a, b) in flat.items():
+                    assert a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b), (mname, r, path)
+
+
+def _spec_rank(ai, chosen, spec):
+    return {"spec": spec, "built": shd.P(None, ai.batch_axes),
+            "specs": shd.jax_specs(get_config("llama3_2-1b").smoke(), ai)}
+
+
+def test_partition_specs_survive_pickle_save_and_spawn():
+    """A spec round-trips through ``pickle`` and ``torch.save``/``torch.load``
+    as itself (a ``P``, entries unchanged), and so do the specs two spawned
+    ranks return through ``launch.mesh.spawn``."""
+    import io
+    import pickle
+
+    specs = (shd.P(None, "data"), shd.P(), shd.P("data"), shd.P(("pod", "data"), "model"), shd.P(None, None, "model"))
+    for spec in specs:
+        buf = io.BytesIO()
+        torch.save({"s": spec}, buf)
+        buf.seek(0)
+        for back in (pickle.loads(pickle.dumps(spec)), torch.load(buf, weights_only=False)["s"]):
+            assert type(back) is shd.P and back == spec and tuple(back) == tuple(spec)
+    res = launch_mesh.spawn(_spec_rank, 2, (shd.P(None, "data"),), device="cpu", timeout_s=DEADLINE_S)
+    want = shd.jax_specs(get_config("llama3_2-1b").smoke(), launch_mesh.make_axis_info(Mesh((2, 1), ("data", "model"))))
+    for r in res:
+        assert type(r["spec"]) is shd.P and r["spec"] == shd.P(None, "data") and r["built"] == shd.P(None, "data")
+        flat = []
+        shd._map(lambda _, a, b: flat.append(type(a) is shd.P and a == b), r["specs"], want)
+        assert flat and all(flat)
+
+
 def test_meshes_without_a_process_group():
     """One process and no group: the elastic mesh is (1, 1); the production
     meshes need 256 or 512 ranks; ``P`` normalises one-name tuples as
@@ -392,3 +467,22 @@ def test_combine_across_ranks_matches_jax(n_ranks):
             assert float(r["out"][1].abs().max()) == 0.0
         # the empty row is empty on every rank
         assert all((r["m"][1] == np.float32(-1e30)).all() for r in res)
+
+
+@pytest.mark.parametrize("rows, global_rows", [(4, None), (2, 8), (3, 8), (8, None)])
+def test_sharded_step_refuses_a_batch_that_is_not_the_ranks_rows(rows, global_rows):
+    """Across batch shards the train step must be told the global batch's
+    rows, and takes only this rank's block of them (or, where they do not
+    divide, all of them): any other batch raises before a collective."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import make_train_step
+
+    cfg = get_config("llama3_2-1b").smoke()
+    ai = mesh_info("2x2", 0)
+    model = build_model(cfg)
+    params = shd.shard_params(model.init(0, "cpu"), cfg, ai, layout="jax")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (rows, 8))) for k in ("tokens", "labels")}
+    step = make_train_step(model, cfg, opt.AdamWConfig(), axis_info=ai)
+    with pytest.raises(ValueError, match="global_rows" if global_rows is None else "rows"):
+        step(params, opt.adamw_init(params), batch, global_rows)

@@ -8,7 +8,8 @@ the SSM family at smoke size: the weights are the JAX package's
 (``params_from_jax(..., axis_info=)``: each rank keeps its experts), the
 prefill is single-device (as ``tests/test_grad_compress.py``'s
 ``test_distributed_decode_paged_pool_sharded``), its pools padded to the
-page shards and striped (``shard_cache``), then three decode steps with the
+page shards and striped and its SSM states cut to the rank's rows
+(``shard_cache``), then three decode steps with the
 same teacher-forced tokens. Held to:
 
 * the JAX single-device ``decode_step`` (every family), and, for llama, the
@@ -290,8 +291,9 @@ def test_llama_matches_jax_shard_map_decode(sharded_runs):
 
 
 def test_ssm_decode_takes_an_axis_info(sharded_runs):
-    """mamba2 keeps its states replicated: the same numbers, bit for bit,
-    with and without an axis_info."""
+    """mamba2 with its states cut to each rank's rows (``shard_cache``: its
+    block over ``data``), the gated output regathered before ``out_proj``:
+    the same numbers, bit for bit, as without an axis_info."""
     _, _, ranks = sharded_runs
     for r in ranks:
         assert torch.equal(r["ssm"]["decode"], r["ssm"]["unsharded"])

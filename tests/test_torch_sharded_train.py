@@ -11,7 +11,9 @@ sharded path runs unchanged. ``adamw_update`` is wrapped there, in the
 subprocess only, so that the step also returns the gradients it applied.
 
 The port runs the same step on 4 spawned gloo CPU ranks of a ``(2, 2)``
-mesh, with the JAX package's weights, in both of its layouts: the one it
+mesh, each rank handed its ``batch_shardings`` block of the batch (its rows
+alone, as the JAX step's ``in_shardings`` would lay them), with the JAX
+package's weights, in both of its layouts: the one it
 trained in first (``params_from_jax(axis_info=)``: each rank keeps its
 experts, every other leaf whole) and the JAX package's own
 (``layout="jax"``: every leaf its ``param_shardings`` block, FSDP over
@@ -22,12 +24,17 @@ hybrid and audio families at smoke width with 2 layers, B = 8 rows of S =
 share's divisor must be the whole microbatch's count), ``grad_accum`` 4
 (four microbatches of two rows, one row a data shard). The same ranks also
 run llama in the JAX layout on a ``(data 4, model 1)`` mesh (pure FSDP),
-against the JAX step on the same mesh shape.
+against the JAX step on the same mesh shape. llama and mixtral also take
+the step on the global batch, every rank holding all of it, which the
+rank's-rows step equals within 1e-6 (the same rows a data shard in each
+microbatch; the f32 sums in another order).
 
 Held, each within 1e-5: the loss and metrics, every gradient leaf, the
 updated params and the moments (each leaf against its block of JAX's);
 each leaf bit-equal on the ranks that hold the same block; in the JAX
-layout the bytes a rank holds, to the byte JAX's per device. The MoE
+layout the bytes a rank holds, to the byte JAX's per device. The
+launcher's rank-local ``TokenPipeline`` reads bit for bit the global
+reader's block of each batch. The MoE
 layer's sharded gradients (router, tokens, experts; aux weight 1, EP with 4
 experts and expert-TP with 3) against ``jax.grad`` through the JAX
 package's ``moe_ffn(axis_info)``, also within 1e-5. And the collectives'
@@ -78,8 +85,10 @@ TINY_GRAD = 100 * OPT_CFG.eps
 MOE_CASES = {"ep": 4, "tp": 3}  # experts: 4 divide the model axis (EP), 3 do not (expert-TP)
 FSDP_CASES = ("dense",)  # on (data 4, model 1): pure FSDP
 # the port's runs: (mesh, layout, cases); "experts" is the layout the port trained in first
+GLOBAL_CASES = ("dense", "moe")  # also stepped on the global batch, held to the rank's-rows step
 RUNS = {"experts": ((2, 2), "experts", sorted(CASES)), "jax": ((2, 2), "jax", sorted(CASES)),
-        "fsdp": ((4, 1), "jax", list(FSDP_CASES))}
+        "fsdp": ((4, 1), "jax", list(FSDP_CASES)), "global": ((2, 2), "jax", list(GLOBAL_CASES))}
+GLOBAL_TOL = 1e-6
 AUX_W = 1.0
 
 
@@ -258,8 +267,11 @@ def _train_rank(ai, chosen, steps_in, moe_in):
             step = trainer.make_train_step(build_model(cfg), cfg, opt.AdamWConfig(**OPT), axis_info=run_ai,
                                            param_shardings=shd.param_specs(cfg, run_ai, layout))
             batch = {k: torch.from_numpy(v) for k, v in make_batch(name).items()}
+            if run != "global":  # the rank's rows alone, as batch_shardings lays them
+                batch = {k: shd.shard_leaf(v, spec, run_ai).clone() for (k, v), spec in
+                         zip(batch.items(), shd.batch_shardings(batch, cfg, run_ai).values())}
             seen["grad_calls"] = 0
-            params, state, metrics = step(params, state, batch)
+            params, state, metrics = step(params, state, batch, B)
             held = [t for part in (params, state) for t in _flat(part).values()]
             out["steps"][run, name] = {"params": _flat(params), "m": _flat(state["m"]), "v": _flat(state["v"]),
                                        "grads": seen["grads"], "metrics": metrics, "grad_calls": seen["grad_calls"],
@@ -450,6 +462,63 @@ def test_jax_layout_bytes_a_rank_equal_jax(run, name, runs):
     ref, ranks, _ = runs
     want = ref["fsdp" if run == "fsdp" else "steps"][name]["bytes"]
     assert [r["steps"][run, name]["bytes"] for r in ranks] == [want] * len(ranks)
+
+
+@pytest.mark.parametrize("name", GLOBAL_CASES)
+def test_rank_rows_step_equals_global_batch_step(name, runs):
+    """The step on each rank's rows alone against the step on the global
+    batch that every rank holds (each microbatch a slice of it): loss and
+    metrics, gradients, moments and the updated params within 1e-6 on
+    every rank (the params by ``TINY_GRAD``'s rule), one gradient
+    all-reduce each; the MoE routes the same rows a data shard."""
+    _, ranks, _ = runs
+    for rank, r in enumerate(ranks):
+        got, want = r["steps"]["jax", name], r["steps"]["global", name]
+        assert got["grad_calls"] == want["grad_calls"] == 1
+        for k, v in got["metrics"].items():
+            close(v, want["metrics"][k].numpy(), GLOBAL_TOL, f"{k} rank {rank}")
+        for part in ("grads", "m", "v", "params"):
+            assert sorted(got[part]) == sorted(want[part])
+            for path, t in got[part].items():
+                w = want[part][path].numpy()
+                if part == "params":
+                    tiny = np.abs(want["m"][path].numpy()) / (1 - OPT_CFG.b1) < TINY_GRAD
+                    assert (np.abs(t.numpy() - w)[tiny] <= 2 * OPT_CFG.lr).all(), (path, rank)
+                    w = np.where(tiny, t.numpy(), w)
+                close(t, w, GLOBAL_TOL, f"{part} {path} rank {rank}")
+
+
+def test_rank_pipeline_reads_the_global_readers_block():
+    """The launcher's reader of a rank's rows (the batch shards as
+    ``TokenPipeline``'s ranks) yields, bit for bit, that rank's
+    ``batch_shardings`` block of what the one global reader yields, step
+    after step, on (2, 2) and (4, 1); a batch that does not divide is read
+    whole."""
+    from repro_torch.core.cluster import Cluster
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline, write_token_corpus
+    from repro_torch.launch.train import bigram_corpus, corpus_tokens, pipeline_config
+
+    batch, seq = 8, 16
+    cluster = Cluster(n_data_providers=2, n_metadata_providers=2)
+    try:
+        n = corpus_tokens(batch, seq)
+        handle = write_token_corpus(cluster.session(), bigram_corpus(512, n, np.random.default_rng(0)))
+        whole = TokenPipeline(handle, n, PipelineConfig(batch_per_rank=batch, seq_len=seq, n_ranks=1, rank=0))
+        for shape in ((2, 2), (4, 1)):
+            for rank in range(4):
+                ai = _axis_info(rank, shape)
+                cfg = pipeline_config(batch, seq, 0, ai)
+                assert (cfg.n_ranks, cfg.rank) == (shape[0], rank // shape[1])
+                mine = TokenPipeline(handle, n, cfg)
+                for step in (0, 1, 5):
+                    want = whole.batch_at(step)
+                    specs = shd.batch_shardings(want, None, ai)
+                    for k, v in mine.batch_at(step).items():
+                        np.testing.assert_array_equal(v, shd.shard_leaf(want[k], specs[k], ai))
+        odd = pipeline_config(6, seq, 0, _axis_info(1, (4, 1)))
+        assert (odd.batch_per_rank, odd.n_ranks, odd.rank) == (6, 1, 0)
+    finally:
+        cluster.close()
 
 
 @pytest.mark.parametrize("form", ["tp_gather", "tp_block", "fsdp", "gather_blocks"])

@@ -24,16 +24,22 @@ jitted likewise. Held:
 * the argument bytes a rank: a prefill's (its param blocks and its rows of
   the batch) equal to ``memory_analysis().argument_size_in_bytes`` of the
   JAX prefill, to the byte; a decode step's equal too, but for differences
-  stated exactly (the port keeps the decode tokens and the SSM states
-  replicated, and ``jax.jit`` drops the arguments the encoder-decoder's
-  decode never reads);
+  stated exactly (the port keeps the decode tokens replicated, and
+  ``jax.jit`` drops the arguments the encoder-decoder's decode never reads);
+* the SSM states (mamba2, zamba2): each rank's ``ssm`` and ``conv`` after
+  the prefill and after the decode steps are its rows alone, in shape JAX's
+  device shard of them under ``cache_shardings`` and in value within the
+  family's tolerance of it (``addressable_shards``); with 3 rows, which do
+  not divide over ``data``, every rank holds every row's states, and its
+  logits and states are the unsharded model's within the tolerance;
 * ``model.init(axis_info=)`` bit-equal to the blocks of the unsharded init;
 * the prefill's pools: this rank's stripes of the unsharded prefill's,
   where a data shard's pages line up with its model ranks' stripes and
   where they do not;
 * what decode moves: on a fake (2, 2) group one decode step's all-reduce
   bytes are a hand count of the activations (and the norm scales,
-  regathered at use), with no weight among them.
+  regathered at use), with no weight among them: llama's, and mamba2's
+  with the regather of each Mamba2 layer's gated output over ``data``.
 """
 
 import dataclasses
@@ -62,6 +68,8 @@ ROOT = TESTS.parent
 DEADLINE_S = 60.0
 N_STEPS = 3
 ROWS, SEQ, S_ENC = 4, 64, 32  # S_ENC: the Pallas flash wrapper wants Sq % min(128, Sq) == 0
+ODD_ROWS = 3  # a batch that does not divide over data: every rank keeps every row's SSM states
+STATE_CASES = ("hybrid", "ssm")
 F32 = {"kv_cache_dtype": "float32"}
 # name: (arch, overrides, tolerance, input kind)
 CASES = {
@@ -170,19 +178,33 @@ def _jax_sharded(params_path: str, out_path: str, part: int) -> None:
         decode = jax.jit(lambda p, c, t, m=model: m.decode_step(p, c, t, ai),
                          in_shardings=(p_shard, c_shard, jshd.batch_shardings(tok, cfg, ai)),
                          out_shardings=(None, c_shard))
+        states = {"prefill": _state_shards(cache)} if name in STATE_CASES else {}
         steps = []
         with mesh:
             dcompiled = decode.lower(params, cache, tok).compile()
             for t in tokens:
                 lg, cache = dcompiled(params, cache, jnp.asarray(t))
                 steps.append(np.asarray(lg))
+        if states:
+            states["decode"] = _state_shards(cache)
         out[(mesh_name, name)] = {
+            "states": states,
             "prefill": np.asarray(logits),
             "decode": np.stack(steps),
             "prefill_args": compiled.memory_analysis().argument_size_in_bytes,
             "decode_args": dcompiled.memory_analysis().argument_size_in_bytes}
     with open(out_path, "wb") as fh:
         pickle.dump(out, fh)
+
+
+def _state_shards(cache):
+    """Each distinct device shard of the cache's SSM states: ``{leaf:
+    {(first row, end row): array}}`` (the model axis holds copies)."""
+    out = {}
+    for leaf in ("ssm", "conv"):
+        arr = cache["ssm"][leaf]
+        out[leaf] = {tuple(s.index[1].indices(arr.shape[1])[:2]): np.asarray(s.data) for s in arr.addressable_shards}
+    return out
 
 
 # ------------------------------ the port, on 4 ranks ------------------------------
@@ -208,22 +230,44 @@ def _serve_cases(ai, params_in, names):
         held_rows = {k: shd.shard_leaf(torch.from_numpy(v), rows, ai).clone() for k, v in batch.items()}
         logits, cache = model.prefill(local, port_inputs(name, batch), axis_info=ai)
         decode_args = cost.storage_bytes((local, cache)) + tokens[0].nbytes
+        states = {"prefill": {k: v.clone() for k, v in cache.get("ssm", {}).items()}}
         steps = []
         for t in tokens:
             lg, cache = model.decode_step(local, cache, torch.from_numpy(t), axis_info=ai)
             steps.append(lg)
+        states["decode"] = cache.get("ssm", {})
         init = model.init(0, "cpu", axis_info=ai)
         want = shd.shard_params(model.init(0, "cpu"), cfg, ai, layout="jax")
         same = shd._map(lambda _, a, b: a.shape == b.shape and torch.equal(a, b), init, want)
-        states = cache.get("ssm", {})
         layouts = None  # the prefill's stripes against shard_cache of the unsharded prefill
         if name == "dense":
             layouts = _layouts(model, cfg, local, params_from_jax(params_in[name], cfg, "cpu"), batch, ai)
         out[name] = {"prefill": logits, "decode": torch.stack(steps),
                      "prefill_args": cost.storage_bytes(local) + cost.storage_bytes(held_rows), "decode_args": decode_args,
-                     "state_bytes": cost.storage_bytes(states), "init_equal": same, "layouts": layouts,
+                     "states": states, "init_equal": same, "layouts": layouts,
+                     "odd": _odd_rows(model, local, params_from_jax(params_in[name], cfg, "cpu"), batch, tokens, ai)
+                     if name in STATE_CASES else None,
                      "unread": cost.storage_bytes([local["encoder"], local["ln_enc"], local["decoder"]["cross"]["wk"],
                                             local["decoder"]["cross"]["wv"]]) if "encoder" in local else 0}
+    return out
+
+
+def _odd_rows(model, local, full, batch, tokens, ai):
+    """The prefill and decode steps of ``ODD_ROWS`` rows, sharded and
+    unsharded (one rank of a (1, 1) mesh: the distributed cache rule, no
+    headroom page, as the sharded prefill): (logits, final states) each."""
+    from repro_torch.parallel.axisinfo import AxisInfo, Mesh
+
+    one = AxisInfo(Mesh((1, 1), ("data", "model")), ("data",))
+    x = torch.from_numpy(batch["tokens"][:ODD_ROWS])
+    out = {}
+    for key, params, axis_info in (("sharded", local, ai), ("unsharded", full, one)):
+        logits, cache = model.prefill(params, x, axis_info=axis_info)
+        steps = [logits]
+        for t in tokens:
+            lg, cache = model.decode_step(params, cache, torch.from_numpy(t[:ODD_ROWS]), axis_info=axis_info)
+            steps.append(lg)
+        out[key] = (torch.stack(steps), cache["ssm"])
     return out
 
 
@@ -306,17 +350,56 @@ def test_prefill_and_decode_match_jax_sharded(mesh_name, name, runs):
 
 @pytest.mark.parametrize("mesh_name,name", _cases())
 def test_argument_bytes_a_rank_equal_jax(mesh_name, name, runs):
-    """A prefill holds what JAX's holds, to the byte. A decode step too, but
-    for the tokens and SSM states the port keeps replicated over the batch
-    axes and the arguments ``jax.jit`` drops from an encoder-decoder's decode."""
+    """A prefill holds what JAX's holds, to the byte. A decode step too (the
+    SSM states its rows'), but for the tokens the port keeps replicated over
+    the batch axes and the arguments ``jax.jit`` drops from an
+    encoder-decoder's decode."""
     jax_out, ranks = runs
     want = jax_out[(mesh_name, name)]
     nb = MESHES[mesh_name][0][0]
     for res in ranks[mesh_name]:
         got = res[name]
         assert got["prefill_args"] == want["prefill_args"]
-        replicated = (got["state_bytes"] + ROWS * 4) * (nb - 1) // nb
+        replicated = ROWS * 4 * (nb - 1) // nb
         assert got["decode_args"] - replicated - got["unread"] == want["decode_args"]
+
+
+@pytest.mark.parametrize("when", ["prefill", "decode"])
+@pytest.mark.parametrize("name", STATE_CASES)
+def test_ssm_states_are_the_ranks_rows_of_jax(name, when, runs):
+    """After the sharded prefill and after the decode steps each rank holds
+    the ``ssm`` and ``conv`` states of its data shard's rows alone: the
+    shape of JAX's device shard of those rows under ``cache_shardings``,
+    its values within the family's tolerance, bit-equal on the model
+    ranks that share the rows."""
+    jax_out, ranks = runs
+    want, tol = jax_out[("2x2", name)]["states"][when], CASES[name][2]
+    for r, res in enumerate(ranks["2x2"]):
+        rows = _rows_of(r, "2x2")
+        for leaf in ("ssm", "conv"):
+            got = res[name]["states"][when][leaf]
+            shard = want[leaf][(rows.start, rows.stop)]
+            assert tuple(got.shape) == shard.shape and got.shape[1] == ROWS // 2
+            close(got, shard, tol)
+            assert torch.equal(got, ranks["2x2"][r - r % 2][name]["states"][when][leaf])
+
+
+@pytest.mark.parametrize("name", STATE_CASES)
+def test_ssm_states_stay_whole_where_the_batch_does_not_divide(name, runs):
+    """3 rows over 2 data shards: every rank prefills every row and keeps
+    every row's states (``cache_shardings`` gives ``P()``); its logits and
+    states after the decode steps are the unsharded model's within the
+    family's tolerance, bit-equal on every rank."""
+    _, ranks = runs
+    tol = CASES[name][2]
+    first = ranks["2x2"][0][name]["odd"]["sharded"]
+    for res in ranks["2x2"]:
+        (logits, states), (want_logits, want_states) = res[name]["odd"]["sharded"], res[name]["odd"]["unsharded"]
+        close(logits, want_logits.float().numpy(), tol)
+        assert torch.equal(logits, first[0])
+        for leaf in ("ssm", "conv"):
+            assert states[leaf].shape == want_states[leaf].shape and states[leaf].shape[1] == ODD_ROWS
+            close(states[leaf], want_states[leaf].numpy(), tol)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -345,30 +428,46 @@ def test_prefill_cache_is_the_striped_unsharded_cache(mesh_name, runs):
                 assert err <= (0 if leaf in ("tables", "page_pos") else 1e-5), (case, leaf, err)
 
 
-def _hand_count(cfg, B: int, tp: int, nb: int) -> int:
-    """Bytes a decode step all-reduces (f32 smoke model): per layer the new
-    token's q, k, v (every head), the split-K combine's (m) and (o, l), the
-    attention and MLP outputs (every embed column) and the MLP's gate and
-    hidden columns (this rank's ffn block); per step the embedding rows,
-    the logits over the vocab, and the norm scales (regathered at use)."""
-    H, K, hd, d, f, L, V = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model, cfg.d_ff, cfg.n_layers,
-                            cfg.padded_vocab)
+def _hand_count(cfg, B: int, tp: int, nb: int) -> tuple:
+    """(bytes, calls) a decode step all-reduces (f32 smoke model). A
+    transformer: per layer the new token's q, k, v (every head), the
+    split-K combine's (m) and (o, l), the attention and MLP outputs (every
+    embed column) and the MLP's gate and hidden columns (this rank's ffn
+    block); per step the embedding rows, the logits over the vocab, and the
+    norm scales (regathered at use, one call). Mamba2: per layer
+    ``in_proj``'s output (every column), the gated output's model block of
+    every row (each data shard's rows regathered over ``data``: its states
+    are that shard's) and ``out_proj``'s output (every embed column); per
+    step the embedding rows, the logits, and the leaves used whole: the
+    norm scales over ``data`` in one call, the conv taps and bias and the
+    gated norm's scale over ``model`` in another."""
+    d, L, V = cfg.d_model, cfg.n_layers, cfg.padded_vocab
+    if cfg.family == "ssm":
+        di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+        proj, conv_dim = 2 * di + 2 * gn + cfg.ssm_heads, di + 2 * gn
+        per_layer = B * proj + B * di // tp + B * d
+        per_step = B * d + B * V + (L + 1) * d + L * (cfg.ssm_conv * conv_dim + conv_dim + di)
+        return 4 * (L * per_layer + per_step), 3 * L + 4
+    H, K, hd, f = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     per_layer = B * (H + 2 * K) * hd + B * H + B * H * (hd + 1) + 2 * B * d + 2 * B * f // tp
     per_step = B * d + B * V + (2 * L + 1) * d
-    return 4 * (L * per_layer + per_step)
+    return 4 * (L * per_layer + per_step), 6 * L + 3
 
 
-def test_decode_moves_activations_only():
-    """llama's decode step on a fake (2, 2) group: its all-reduce bytes and
-    calls are the hand count, which holds no weight's bytes."""
-    cfg = get_config("llama3_2-1b").smoke()
+@pytest.mark.parametrize("arch", ["llama3_2-1b", "mamba2-370m"])
+def test_decode_moves_activations_only(arch):
+    """A decode step on a fake (2, 2) group (llama's, and mamba2's with
+    its states the rank's rows): its all-reduce bytes and calls are the
+    hand count, which holds no weight's bytes."""
+    cfg = get_config(arch).smoke()
     before = dict(collectives.stats)
     with dryrun.fake_world(4):
         ai = make_axis_info(make_mesh((2, 2), ("data", "model")))
         rec = dryrun.plan(cfg, "decode", ROWS, SEQ, ai)
     moved = rec["collectives"]["all-reduce"]
-    assert moved == _hand_count(cfg, ROWS, 2, 2) == collectives.stats["bytes"] - before["bytes"]
-    assert rec["collective_count"] == 6 * cfg.n_layers + 3
+    nbytes, calls = _hand_count(cfg, ROWS, 2, 2)
+    assert moved == nbytes == collectives.stats["bytes"] - before["bytes"]
+    assert rec["collective_count"] == calls
 
 
 def test_a_leaf_in_no_layout_raises_naming_it():
