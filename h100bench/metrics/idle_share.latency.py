@@ -1,0 +1,4 @@
+"""Device: the share of the profiled stretch in which no kernel or copy ran,
+in %, in the cells that report `ttft_p90_ms`."""
+
+from h100bench.trace import idle_share as read  # noqa: F401

@@ -1,0 +1,16 @@
+"""Model step: the operations the window's decode steps need (the top-k
+experts only, attention over each row's visible tokens; ``h100bench.work``)
+over their synchronised time at the bf16 peak, in %. Calls inside the
+profiled stretch are left out."""
+
+from h100bench.peaks import BF16_FLOPS
+
+
+def read(obs):
+    p = obs.probe
+    if p is None:
+        return None
+    start, end = obs.window_span()
+    calls = [(t1 - t0, f) for t0, t1, f, profiled in p.decodes if start <= t0 <= end and not profiled]
+    secs = sum(s for s, _ in calls)
+    return 100.0 * sum(f for _, f in calls) / (secs * BF16_FLOPS) if secs else None
